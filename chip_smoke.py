@@ -15,9 +15,25 @@
    lc=0.04)`` in float64 on the card, and checks that it converged, that
    it matches tests/fixtures/channel_ns_prod.npz to rel-L2 < 1e-6, and
    that the solve launched K1;
-4. prints one JSON line of kernel results (error: the largest over the
+4. traces the card's own solution at full width,
+   ``trace.pipeline.for_and_rev_streamtrace(200, ...)`` (386 forward
+   seeds, a 200 x 200 reverse grid), and holds it against
+   tests/fixtures/trace_prod.npz (the JAX package's CPU-f64 trace of the
+   stored field): the inside/outside mask agrees on >= 99.9% of the
+   seeds, the outlet-point count is within 0.2%, the kept forward
+   endpoints are as many; writes final_output.csv and outlet.png under
+   build/chip_smoke/;
+5. traces the stored field itself forward, on a locator whose every
+   tensor is on the card, and holds the kept endpoints to the fixture's:
+   (y, z) within 1e-6, x within the event bisection's resolution (the
+   trajectories amplify a 1e-9 change of the field to ~1e-4, so this is
+   the phase that compares arithmetic to arithmetic);
+6. runs the Reynolds-sweep warm path, ``solve_ns_flow(20, ...,
+   warm=<phase 3's solution>)``, and checks that it converged without a
+   coarse phase and launched K1;
+7. prints one JSON line of kernel results (error: the largest over the
    levels checked; times: the fine level), then the final JSON status
-   line.
+   line.  The trace runs no hand-written kernel, so it adds no entry.
 
 Exits nonzero, with no result, without a CUDA card or without the
 repository beside it.  Nothing here imports JAX.
@@ -35,7 +51,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "stabilized_navier_stokes_flow_fenicsx_tpu_torch"
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "channel_ns_prod.npz")
+TRACE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "trace_prod.npz")
 RE, RATIO, LC = 10.0, 0.5, 0.04
+RE_WARM = 20.0
+NUM_SEEDS = 200            # reverse grid per side (InletBatchScript.py:41)
 TPU_KERNEL = ("stabilized_navier_stokes_flow_fenicsx_tpu/assemble/"
               "pallas_spmv.py:107")
 # (values dtype, x dtype, rel-L2 tolerance of kernel vs plain):
@@ -199,7 +218,149 @@ def run_main_path(torch, np, img, device):
         raise RuntimeError(f"solution rel-L2 {rel:.3e} >= 1e-6")
     if total <= 0:
         raise RuntimeError("the solve never launched K1")
-    return launches
+    return launches, sol
+
+
+def _on_card(*tensors) -> bool:
+    return all(t.is_cuda for t in tensors)
+
+
+def run_trace(torch, np, img, sol, device):
+    """Phase 4: the full-width trace of the card's own solution."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
+        solve_inlet_profiles)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.mesh.tri2d import (
+        points_in_polygon)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.postprocess.outlet_image import (
+        outlet_image_from_trace)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
+        for_and_rev_streamtrace)
+
+    fx = np.load(TRACE_FIXTURE)
+    inlet1, _ = solve_inlet_profiles(img, RATIO, DEFAULT)
+    t0 = time.perf_counter()
+    res = for_and_rev_streamtrace(NUM_SEEDS, img, sol.mesh, sol.u,
+                                  inlet1.mesh.points, DEFAULT, device=device)
+    wall = time.perf_counter() - t0
+    st = res.stats
+    inside = points_in_polygon(res.reverse_endpoints[:, 1:3],
+                               res.inner_contour)
+    flips = int((inside != fx["inside"]).sum()) \
+        if inside.shape == fx["inside"].shape else len(inside)
+    n_out, n_out_ref = len(res.outlet_points), len(fx["outlet_points"])
+    fe, fe_ref = res.forward_endpoints, fx["forward_endpoints"]
+    print(f"trace: {wall:.3f} s wall; locator_build_s "
+          f"{st['locator_build_s']:.4f}, fwd_s {st['fwd_s']:.4f}, rev_s "
+          f"{st['rev_s']:.4f}; seeds {st['seeds']}, seed_steps "
+          f"{st['seed_steps']} (fixture {int(fx['seed_steps'])}), "
+          f"lane_steps {st['lane_steps']}, dispatches {st['dispatches']}",
+          flush=True)
+    print(f"trace vs trace_prod.npz: kept forward {len(fe)} (fixture "
+          f"{len(fe_ref)}), outlet points {n_out} (fixture {n_out_ref}), "
+          f"mask flips {flips} of {len(inside)}", flush=True)
+    if len(fe) == len(fe_ref):
+        d = np.abs(fe - fe_ref)
+        print(f"kept forward endpoints vs fixture (own solution): max abs "
+              f"x {d[:, 0].max():.3e}, y {d[:, 1].max():.3e}, z "
+              f"{d[:, 2].max():.3e}; (y, z) within 1e-6 for "
+              f"{(d[:, 1:].max(axis=1) <= 1e-6).mean():.4f} of them",
+              flush=True)
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    np.savetxt(os.path.join(work, "final_output.csv"), res.outlet_points,
+               delimiter=",")
+    outlet_image_from_trace(res.seeds, res.reverse_endpoints,
+                            res.inner_contour,
+                            path=os.path.join(work, "outlet.png"))
+    if not np.isfinite(res.forward_endpoints).all() \
+            or not np.isfinite(res.reverse_endpoints).all():
+        raise RuntimeError("non-finite trace endpoints")
+    if res.seeds.shape != fx["seeds"].shape:
+        raise RuntimeError(f"reverse grid {res.seeds.shape} != fixture "
+                           f"{fx['seeds'].shape}")
+    if flips > 1e-3 * len(inside):
+        raise RuntimeError(f"{flips} of {len(inside)} seeds flipped "
+                           f"inside/outside (bar 0.1%)")
+    if abs(n_out - n_out_ref) > 2e-3 * n_out_ref:
+        raise RuntimeError(f"outlet points {n_out} vs fixture {n_out_ref} "
+                           f"(bar 0.2%)")
+    if len(fe) != len(fe_ref):
+        raise RuntimeError(f"kept forward endpoints {len(fe)} vs fixture "
+                           f"{len(fe_ref)}")
+    return inlet1
+
+
+def check_trace_arithmetic(torch, np, sol, inlet1, device):
+    """Phase 5: the stored field traced forward on the card against the
+    fixture's kept forward endpoints."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.fem.interpolate import (
+        LayeredDeviceLocator, build_trace_locator)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
+        SEED_CHUNK, trace_config)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.streamtrace import (
+        trace_particles)
+
+    tc = DEFAULT.trace
+    u_ref, _ = sol.space.split(np.load(FIXTURE)["w"])
+    dloc = build_trace_locator(sol.mesh, device=device)
+    if not isinstance(dloc, LayeredDeviceLocator) or not _on_card(
+            *(v for v in vars(dloc).values() if isinstance(v, torch.Tensor))):
+        raise RuntimeError("the trace locator is not a layered locator on "
+                           "the card")
+    seeds = np.hstack([np.zeros((len(inlet1.mesh.points), 1)),
+                       inlet1.mesh.points])
+    ends = trace_particles(trace_config(tc), dloc,
+                           torch.as_tensor(u_ref, device=device), seeds,
+                           chunk=SEED_CHUNK)
+    if not _on_card(ends):
+        raise RuntimeError("the trace endpoints are not on the card")
+    ends = ends.cpu().numpy()
+    kept = ends[ends[:, 0] > tc.x_forward_keep]
+    fe_ref = np.load(TRACE_FIXTURE)["forward_endpoints"]
+    if kept.shape != fe_ref.shape:
+        raise RuntimeError(f"stored field: kept forward endpoints "
+                           f"{len(kept)} vs fixture {len(fe_ref)}")
+    d = np.abs(kept - fe_ref)
+    x_res = 2.0 ** -16 * tc.max_step * np.abs(u_ref[:, 0]).max()
+    print(f"stored field traced on the card: kept forward {len(kept)}; max "
+          f"abs vs fixture x {d[:, 0].max():.3e} (bar {x_res:.3e}, the "
+          f"bisection's resolution), y {d[:, 1].max():.3e}, z "
+          f"{d[:, 2].max():.3e} (bar 1e-6)", flush=True)
+    if d[:, 1:].max() > 1e-6 or d[:, 0].max() > x_res:
+        raise RuntimeError("stored field: kept forward endpoints disagree "
+                           "with the fixture")
+
+
+def run_warm_sweep(torch, np, img, sol, device):
+    """Phase 6: the Reynolds-sweep warm path from phase 3's solution."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
+        solve_ns_flow)
+
+    layered_spmv.reset_launches()
+    t0 = time.perf_counter()
+    sol20 = solve_ns_flow(RE_WARM, img, RATIO, channel_mesh_size=LC,
+                          warm=sol, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = layered_spmv.LAUNCHES
+    h = sol20.newton_history.get("fine_ns", np.zeros((0, 4)))
+    print(f"warm Re={RE_WARM:g} solve: {wall:.2f} s wall, timings "
+          f"{json.dumps({k: round(v, 4) for k, v in sol20.timings.items()})}",
+          flush=True)
+    print(f"warm Re={RE_WARM:g}: Newton its {sol20.newton_iters}, FGMRES its "
+          f"{[int(r[2]) for r in h]}, |F| {sol20.newton_resnorm:.3e}, "
+          f"converged {sol20.converged}, K1 launches {launches}", flush=True)
+    if not sol20.converged or not np.isfinite(sol20.w).all():
+        raise RuntimeError("the warm solve did not converge")
+    coarse = [k for k in sol20.timings
+              if k.startswith("coarse") or k in ("stokes", "interpolate")]
+    if coarse:
+        raise RuntimeError(f"the warm solve ran coarse phases {coarse}")
+    if launches <= 0:
+        raise RuntimeError("the warm solve never launched K1")
 
 
 def main() -> int:
@@ -211,7 +372,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, PKG)) \
-            or not os.path.exists(FIXTURE):
+            or not os.path.exists(FIXTURE) \
+            or not os.path.exists(TRACE_FIXTURE):
         return fail(f"run from a checkout of the repository ({PKG}/ and "
                     f"tests/fixtures/ beside this script)")
     sys.path.insert(0, ROOT)
@@ -221,6 +383,7 @@ def main() -> int:
         make_annulus_image)
 
     device = torch.device("cuda")
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -242,7 +405,10 @@ def main() -> int:
 
     try:
         checks = check_kernels(torch, np, img, device)
-        launches = run_main_path(torch, np, img, device)
+        launches, sol = run_main_path(torch, np, img, device)
+        inlet1 = run_trace(torch, np, img, sol, device)
+        check_trace_arithmetic(torch, np, sol, inlet1, device)
+        run_warm_sweep(torch, np, img, sol, device)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
@@ -253,6 +419,8 @@ def main() -> int:
                                0) == 0]
     if missing:
         return fail(f"the solve never launched K1 for {missing}")
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [dict(
         name=f"layered_spmv[{c['pair'][0]} values, {c['pair'][1]} x]",

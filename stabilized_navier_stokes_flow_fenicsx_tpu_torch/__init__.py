@@ -13,7 +13,10 @@ Layers (bottom-up):
 - ``forms``     element kernels (stabilized Stokes, SUPS/LSIC Navier-Stokes)
 - ``assemble``  structured/layered assembly and the layered SpMV kernel
 - ``solve``     FGMRES, aggregation multigrid, Newton, layered drivers
-- ``flow``      inlet profiles and the image-channel continuation solve
+- ``flow``      inlet profiles, the image-channel continuation solve and
+                its Reynolds-sweep warm start
+- ``trace``     point locators, batched RK45 streamtrace, outlet profile
+- ``postprocess`` outlet image from a trace
 - ``io``        XDMF output and run manifests
 - ``apps``      CLI entry points with the reference's argv contracts
 """

@@ -15,12 +15,11 @@ from __future__ import annotations
 import os
 import sys
 
-import torch
-
 from ..config import DEFAULT
 from ..flow.channel import ChannelSolution, solve_ns_flow
 from ..io.metadata import make_output_folder, write_run_metadata
 from ..io.xdmf import write_xdmf_function
+from ..utils.device import device_count
 
 
 def parse_arguments(argv):
@@ -59,11 +58,10 @@ def main(argv=None):
           f"{sol.timings.get('fine_ns', 0.0):.2f} sec", flush=True)
 
     save_navier_stokes_solution(sol, folder)
-    n_devices = torch.cuda.device_count() if torch.cuda.is_available() else 1
     write_run_metadata(
         folder, Re, img_fname, ratio, lc,
         pressure_dofs=sol.space.Q.ndofs, velocity_dofs=sol.space.V.ndofs,
-        n_devices=n_devices, img_name=img_name)
+        n_devices=device_count(), img_name=img_name)
     return sol, folder
 
 

@@ -16,6 +16,9 @@ route, replicating reference NavierStokesChannelFlow.py:468-549
      initial guess (non-matching interpolation; reference :175-194)
   7. fine Navier-Stokes Newton solve
 
+``warm=`` (the Reynolds sweep) skips steps 2-6: the fine Newton starts
+from a previous Re's fine solution on the same (image, lc).
+
 Meshing, BCs and interpolation are host numpy; every solve runs on the
 given torch device.  The Stokes solve uses the Chebyshev V-cycle (see
 ``config.SolverConfig.pc``); the double-float refinement is not ported.
@@ -41,6 +44,7 @@ from ..mesh.extrude import extrude_channel
 from ..mesh.image import get_contours, load_image, optimize_contour
 from ..mesh.tri2d import triangulate_cross_section
 from ..solve.driver import solve_linear_layered, solve_newton_layered
+from ..utils.device import sync
 from .inlet import InletProfile, solve_inlet_profiles
 
 
@@ -181,9 +185,10 @@ def _setup_layered(mesh, inlet1, inlet2, dtype=None, mg_levels=0,
     return LayeredSetup(W, lp, mask, g, mg)
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def _mg_levels(scfg) -> int:
+    """Multigrid levels to build: 0 unless a solve uses the V-cycle."""
+    return scfg.mg_levels if (scfg.pc.startswith("mg")
+                              or scfg.pc_newton.startswith("mg")) else 0
 
 
 def _newton(kernel, st: LayeredSetup, w0, scfg):
@@ -204,6 +209,7 @@ def solve_ns_flow(
     coarse_lc: float = 0.1,
     dtype: Optional[torch.dtype] = None,
     device=None,
+    warm: Optional[ChannelSolution] = None,
 ) -> ChannelSolution:
     """Full continuation solve (reference solve_NS_flow, :468-549).
 
@@ -211,6 +217,15 @@ def solve_ns_flow(
     main() instead uses Re=1 for the coarse pass (:567).  With
     coarse_lc == channel_mesh_size the coarse solve is the result and the
     fine Newton only re-checks it.
+
+    warm: a ChannelSolution of a DIFFERENT Re on the SAME (image, lc) — a
+    Reynolds-sweep fast path the per-run reference contract lacks
+    (run_all_RE.sh re-runs the whole pipeline per Re): the coarse
+    mesh/Stokes/coarse-NS/interpolation phases are skipped and the fine
+    Newton starts from the previous Re's fine solution.  The converged
+    result is the same to the Newton tolerance (same tolerances on the
+    same fine operator); only the initial guess changes.  Ignored when the
+    mesh shape does not match (e.g. a different lc).
     """
     scfg = cfg.solver
     dtype = default_dtype() if dtype is None else dtype
@@ -224,6 +239,14 @@ def solve_ns_flow(
     t0 = time.perf_counter()
     inlet1, inlet2 = solve_inlet_profiles(img_fname, flowrate_ratio, cfg)
     timings["inlet_profiles"] = time.perf_counter() - t0
+
+    if warm is not None:
+        sol = _solve_ns_flow_warm(Re, img_fname, inlet1, inlet2,
+                                  channel_mesh_size, cfg, dtype, device,
+                                  warm, timings)
+        if sol is not None:
+            return sol
+        # shape mismatch: fall through to the full continuation solve
 
     # ---- coarse mesh: Stokes + NS --------------------------------------
     t0 = time.perf_counter()
@@ -248,19 +271,17 @@ def solve_ns_flow(
     else:
         re_ladder = [cRe]
 
-    mg_lv = scfg.mg_levels if (scfg.pc.startswith("mg")
-                               or scfg.pc_newton.startswith("mg")) else 0
-
     t0 = time.perf_counter()
-    st_c = _setup_layered(mesh_c, inlet1, inlet2, dtype, mg_lv, device)
-    _sync(device)
+    st_c = _setup_layered(mesh_c, inlet1, inlet2, dtype, _mg_levels(scfg),
+                          device)
+    sync(device)
     timings["coarse_setup"] = time.perf_counter() - t0
     lp_c = st_c.lp
     t0 = time.perf_counter()
     sres = solve_linear_layered(
         stokes_k, lp_c.n2d, lp_c.n_planes, lp_c.bs, lp_c.arrays,
         st_c.mask, st_c.g, lp_c.E, 1e-8, scfg.ksp_restart, scfg.pc, st_c.mg)
-    _sync(device)
+    sync(device)
     timings["stokes"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     x_rung = sres.x
@@ -269,7 +290,7 @@ def solve_ns_flow(
         nres_c = _newton(ns_kernel(r), st_c, x_rung, scfg)
         history[f"coarse_ns_Re{float(r):g}"] = nres_c.history
         x_rung = nres_c.x
-    _sync(device)
+    sync(device)
     timings["coarse_ns"] = time.perf_counter() - t0
 
     # ---- fine mesh: NS from interpolated coarse ------------------------
@@ -281,8 +302,9 @@ def solve_ns_flow(
                                              cfg)
         timings["fine_mesh"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        st_f = _setup_layered(mesh_f, inlet1, inlet2, dtype, mg_lv, device)
-        _sync(device)
+        st_f = _setup_layered(mesh_f, inlet1, inlet2, dtype,
+                              _mg_levels(scfg), device)
+        sync(device)
         timings["fine_setup"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         w_c = nres_c.x.cpu().numpy()
@@ -306,7 +328,7 @@ def _fine_newton(Re, cfg, mesh_f, st_f: LayeredSetup, ns_f, w0_f,
     ``_fine_newton_refine`` without its refinement branch)."""
     t0 = time.perf_counter()
     nres_f = _newton(ns_f, st_f, w0_f, cfg.solver)
-    _sync(device)
+    sync(device)
     timings["fine_ns"] = time.perf_counter() - t0
     w = nres_f.x.cpu().numpy()
     u, p = st_f.space.split(w)
@@ -314,3 +336,45 @@ def _fine_newton(Re, cfg, mesh_f, st_f: LayeredSetup, ns_f, w0_f,
         mesh_f, st_f.space, w, u, p, Re, int(nres_f.iters),
         float(nres_f.resnorm), bool(nres_f.converged), timings,
         newton_history={"fine_ns": nres_f.history})
+
+
+def _solve_ns_flow_warm(Re, img_fname, inlet1, inlet2, lc, cfg, dtype,
+                        device, warm: ChannelSolution, timings
+                        ) -> Optional[ChannelSolution]:
+    """Reynolds-sweep warm path: fine mesh + setup only, Newton from the
+    previous Re's fine solution.  Returns None on shape mismatch (the
+    caller falls back to the full continuation solve)."""
+    t0 = time.perf_counter()
+    mesh_f, _, _ = generate_channel_mesh(img_fname, lc, cfg)
+    timings["fine_mesh"] = time.perf_counter() - t0
+    if (mesh_f.points.shape != warm.mesh.points.shape
+            or mesh_f.cells.shape != warm.mesh.cells.shape):
+        return None
+    t0 = time.perf_counter()
+    st_f = _setup_layered(mesh_f, inlet1, inlet2, dtype,
+                          _mg_levels(cfg.solver), device)
+    sync(device)
+    timings["fine_setup"] = time.perf_counter() - t0
+    w0_f = torch.as_tensor(np.asarray(warm.w), dtype=dtype, device=device)
+    # re-impose the (Re-independent) BC values exactly
+    w0_f = st_f.mask * w0_f + (1.0 - st_f.mask) * st_f.g
+    ns_f = make_ns_sups_kernel(
+        "tetrahedron", nu=1.0 / Re, C_I=cfg.stab.C_I,
+        transposed_stab=cfg.stab.transposed_advection_in_stab)
+    return _fine_newton(Re, cfg, mesh_f, st_f, ns_f, w0_f, timings, device)
+
+
+def solve_ns_flow_single_mesh(
+    Re: float,
+    img_fname: str,
+    flowrate_ratio: float,
+    channel_mesh_size: float = 0.1,
+    cfg: Config = DEFAULT,
+    device=None,
+) -> ChannelSolution:
+    """Single-mesh variant without coarse->fine continuation — the
+    reference's OldNavierStokesChannelFlow.py pipeline (SURVEY.md 2.1:
+    'Single-mesh variant of the flagship ... kept for reference')."""
+    return solve_ns_flow(
+        Re, img_fname, flowrate_ratio, channel_mesh_size, cfg,
+        coarse_Re=Re, coarse_lc=channel_mesh_size, device=device)

@@ -1,4 +1,4 @@
-"""numpy -> torch upload of host-built tables."""
+"""numpy -> torch upload of host-built tables, and device helpers."""
 
 from __future__ import annotations
 
@@ -21,3 +21,15 @@ def row_ptr_of(row_ids: np.ndarray, n_rows: int) -> np.ndarray:
     ptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(counts, out=ptr[1:])
     return ptr
+
+
+def sync(device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so a host
+    clock read after it times the work, not its launch."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_count() -> int:
+    """Cards in use: every visible CUDA device, else 1 (the CPU)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1

@@ -4,15 +4,29 @@
 (Re=10, circle, ratio 0.5, lc=0.12, single mesh) must reproduce the
 stored CPU-f64 JAX solution tests/fixtures/channel_ns.npz to relative L2
 < 1e-6, the bar of tests/test_parity.py.
+
+The Reynolds-sweep warm path, ``solve_ns_flow(20, ..., warm=<the stored
+Re=10 CHANNEL solution>)``, must match the JAX package's warm solve to
+relative L2 < 1e-6 with Newton iterations within +-1, and skip every
+coarse phase.
 """
+
+import types
 
 import numpy as np
 import pytest
 
 pytest.importorskip("jax")
 
+from stabilized_navier_stokes_flow_fenicsx_tpu.config import (  # noqa: E402
+    DEFAULT as JAX_DEFAULT)
+from stabilized_navier_stokes_flow_fenicsx_tpu.flow.channel import (  # noqa: E402
+    generate_channel_mesh as jax_generate_channel_mesh,
+    solve_ns_flow as jax_solve_ns_flow)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import (  # noqa: E402
     DEFAULT, SolverConfig)
+from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow import (  # noqa: E402
+    channel)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (  # noqa: E402
     solve_ns_flow)
 
@@ -39,3 +53,38 @@ def test_double_float_refinement_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError):
         solve_ns_flow(10.0, channel_image(tmp_path), 0.5, cfg=cfg,
                       device="cpu")
+
+
+def test_warm_sweep_path_matches_jax(tmp_path):
+    img = channel_image(tmp_path)
+    mesh, _, _ = jax_generate_channel_mesh(img, CHANNEL["lc"], JAX_DEFAULT,
+                                           layered=True)
+    # the stored Re=10 solution as the previous rung of a sweep
+    warm = types.SimpleNamespace(
+        mesh=mesh, w=np.load(FIXTURE_DIR / "channel_ns.npz")["w"])
+    sol = solve_ns_flow(20.0, img, CHANNEL["ratio"],
+                        channel_mesh_size=CHANNEL["lc"], warm=warm,
+                        device="cpu")
+    ref = jax_solve_ns_flow(20.0, img, CHANNEL["ratio"],
+                            channel_mesh_size=CHANNEL["lc"], warm=warm)
+    assert sol.converged and bool(ref.converged)
+    assert abs(sol.newton_iters - int(ref.newton_iters)) <= 1
+    assert rel_l2(sol.w, np.asarray(ref.w)) < 1e-6
+    assert rel_l2(sol.w, warm.w) > 1e-3          # Re=20 moved the field
+    assert set(sol.timings) == {"inlet_profiles", "fine_mesh",
+                                "fine_setup", "fine_ns"}
+    assert sol.stokes_iters == 0 and list(sol.newton_history) == ["fine_ns"]
+
+
+def test_warm_path_declines_another_mesh(tmp_path):
+    """A warm solution on another mesh shape is refused (the caller
+    falls back to the full continuation solve)."""
+    img = channel_image(tmp_path)
+    mesh, _, _ = jax_generate_channel_mesh(img, 0.2, JAX_DEFAULT,
+                                           layered=True)
+    warm = types.SimpleNamespace(mesh=mesh, w=None)
+    timings = {}
+    assert channel._solve_ns_flow_warm(
+        20.0, img, None, None, CHANNEL["lc"], DEFAULT, None, "cpu", warm,
+        timings) is None
+    assert set(timings) == {"fine_mesh"}
