@@ -7,14 +7,20 @@
    (the layered SpMV, csrc/layered_spmv.cu) with nvcc into
    build/torch_kernels/;
 2. assembles the lc=0.04 production channel (230,692 dofs) at the stored
-   solution's state, with its multigrid hierarchy, and holds K1 against
-   its plain PyTorch version for the three (values, x) type pairs the
-   solve uses, on every V-cycle level where the solve launches each,
-   timing both (CUDA events, median of 20);
+   solution's state, with its multigrid hierarchy, and holds K1's
+   prepared operand against its plain PyTorch version for the three
+   (values, x) type pairs the solve uses, on every V-cycle level where
+   the solve launches each, unmasked and with the BC mask fused in; and
+   takes K1's yardsticks there: its time with L2 flushed (256 MB written
+   and then 256 MB of others read between launches, outside the CUDA
+   events, so L2 is cold and clean; median of 30) and back to
+   back (100 launches), its bound (bytes over 3.35 TB/s), the plain
+   version's time (median of 20) and one PyTorch sparse product's
+   (``torch.sparse_bsr_tensor`` @ x, L2 flushed);
 3. runs the main path, ``flow.channel.solve_ns_flow(10, circle, 0.5,
    lc=0.04)`` in float64 on the card, and checks that it converged, that
    it matches tests/fixtures/channel_ns_prod.npz to rel-L2 < 1e-6, and
-   that the solve launched K1;
+   that the solve launched K1 for each type pair;
 4. traces the card's own solution at full width,
    ``trace.pipeline.for_and_rev_streamtrace(200, ...)`` (386 forward
    seeds, a 200 x 200 reverse grid), and holds it against
@@ -32,7 +38,9 @@
    warm=<phase 3's solution>)``, and checks that it converged without a
    coarse phase and launched K1;
 7. prints one JSON line of kernel results (error: the largest over the
-   levels checked; times: the fine level), then the final JSON status
+   levels checked; times, bound and library time: level 0 with the mask
+   fused, as the solve calls it, L2 flushed; ``ms_b2b`` back to back,
+   ``ms_unmasked`` flushed without the mask), then the final JSON status
    line.  The trace runs no hand-written kernel, so it adds no entry.
 
 Exits nonzero, with no result, without a CUDA card or without the
@@ -41,6 +49,7 @@ repository beside it.  Nothing here imports JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -60,6 +69,8 @@ TPU_KERNEL = ("stabilized_navier_stokes_flow_fenicsx_tpu/assemble/"
 # (values dtype, x dtype, rel-L2 tolerance of kernel vs plain):
 # f64 differs only in summation order; with bf16 values the plain version
 # rounds each product to bf16, the kernel takes it in the x dtype
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
+FLUSH_BYTES = 256 * 2 ** 20  # written between flushed launches (> 50 MB L2)
 PAIRS = (("float64", "float64", 1e-12),
          ("bfloat16", "float32", 5e-3),
          ("bfloat16", "float64", 5e-3))
@@ -89,11 +100,149 @@ def time_ms(fn, n: int = 20) -> float:
     return statistics.median(times)
 
 
-def check_kernels(torch, np, img, device):
-    """Phase 2: K1 vs its plain version at the lc=0.04 shapes, on every
-    V-cycle level where the solve launches each type pair."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
+class L2Flush:
+    """Leaves L2 cold and clean: writes ``FLUSH_BYTES`` (> the 50 MB L2),
+    then reads as many others, so that the written lines are back in
+    memory before the timed call and their write-back is not timed."""
+
+    def __init__(self, torch, device):
+        self.write = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                 device=device)
+        self.read = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32,
+                               device=device)
+
+    def __call__(self):
+        self.write.fill_(1)
+        self.read.sum()
+
+
+def time_flushed_ms(fn, flush, n: int = 30) -> float:
+    """Median milliseconds of one call of ``fn`` with L2 cold: before each
+    timed call ``flush()`` runs on the card (outside the events), which
+    also keeps the card busy while the host enqueues the call."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(n):
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def time_b2b_ms(fn, n: int = 100) -> float:
+    """Milliseconds per call over n calls back to back (one pair of CUDA
+    events; L2 stays warm, and a call whose host work outlasts its device
+    work is timed by the host)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def solve_levels(n_lv: int) -> dict:
+    """The V-cycle levels each (values, x) pair runs on in the solve: f64
+    is the outer operator; bf16 values with f32 x are the smoothers and
+    spectral estimates on every level; with f64 x the residuals of every
+    level but the coarsest (solved densely)."""
+    return {("float64", "float64"): range(1),
+            ("bfloat16", "float32"): range(n_lv),
+            ("bfloat16", "float64"): range(n_lv - 1)}
+
+
+def k1_bytes(op, vdtype, xdtype, masked: bool) -> int:
+    """Bytes one K1 call must move: the 48 * E * Lp real values (not the
+    layout's padding), x read once, the mask read once when fused, y
+    written once, and the pair tables (cols, row_ptr)."""
+    import torch
+
+    E, Lp, n2d = op.values.shape[3], op.n_planes, op.n2d
+    vsize = torch.tensor([], dtype=vdtype).element_size()
+    asize = torch.tensor([], dtype=xdtype).element_size()
+    ndofs = Lp * n2d * 4
+    return (48 * E * Lp * vsize + (3 if masked else 2) * ndofs * asize
+            + 8 * E + 8 * (n2d + 1))
+
+
+def k1_bound(op, vdtype, xdtype, masked: bool):
+    """(bound_ms, bound_by): the larger of the bytes over the H100's
+    3.35 TB/s and the 2 * 48 * E * Lp FLOP over its peak for x's type
+    outside the tensor cores (67 TFLOP/s f32, 34 TFLOP/s f64; NVIDIA's
+    H100 SXM data sheet)."""
+    import torch
+
+    t_bytes = k1_bytes(op, vdtype, xdtype, masked) / HBM_BYTES_PER_S * 1e3
+    flops = 2 * 48 * op.values.shape[3] * op.n_planes
+    peak = 34e12 if xdtype == torch.float64 else 67e12
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_call(torch, op, vdtype, x, masked: bool):
+    """One PyTorch call computing K1's product, as yardstick: the level's
+    matrix built once as a 4x4 ``torch.sparse_bsr_tensor`` (with the BC
+    projection m A m + (I - m) when masked), ``A @ x``; in the values
+    dtype if torch's CUDA sparse product takes it, else float32, else as
+    CSR.  Returns (fn, label).  The port never calls it."""
+    V, n2d, Lp = op.values, op.n2d, op.n_planes
+    E, N, dev = V.shape[3], op.n2d * op.n_planes, V.device
+    d = torch.arange(3, device=dev)[:, None, None]
+    e = torch.arange(E, device=dev)[None, :, None]
+    lv = torch.arange(Lp, device=dev)[None, None, :]
+    lc = lv + d - 1
+    valid = ((lc >= 0) & (lc < Lp)).expand(3, E, Lp)
+    R = (lv * n2d + op.row_ids[e]).expand(3, E, Lp)[valid]
+    C = (lc * n2d + op.cols[e]).expand(3, E, Lp)[valid]
+    blocks = V.permute(2, 3, 4, 0, 1)[valid]               # (nb, 4, 4)
+    if masked:
+        m = op.mask.to(V.dtype).reshape(-1, 4)
+        blocks = blocks * m[R][:, :, None] * m[C][:, None, :]
+        diag = R == C
+        blocks[diag] += torch.diag_embed(1.0 - m[R[diag]])
+    order = torch.argsort(R * N + C)
+    R, C, blocks = R[order], C[order], blocks[order]
+    crow = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(R, minlength=N), 0)
+    dtypes = [vdtype] + ([torch.float32] if vdtype != torch.float64 else [])
+    errors = []
+    for layout in ("bsr", "csr"):
+        for dt in dtypes:
+            try:
+                A = torch.sparse_bsr_tensor(crow, C, blocks.to(dt),
+                                            size=(4 * N, 4 * N))
+                if layout == "csr":
+                    A = A.to_sparse_csr()
+                xc = x.to(dt)[:, None]
+                fn = functools.partial(torch.matmul, A, xc)
+                y = fn()
+                torch.cuda.synchronize()
+                if y.shape != (4 * N, 1):
+                    raise RuntimeError(f"shape {tuple(y.shape)}")
+                return fn, f"{layout} {str(dt).removeprefix('torch.')}"
+            except (RuntimeError, NotImplementedError, TypeError) as err:
+                errors.append(f"{layout} {dt}: {str(err).splitlines()[0]}")
+    raise RuntimeError(f"no PyTorch sparse product ran: {errors}")
+
+
+def k1_levels(torch, np, img, device):
+    """The lc=0.04 channel's V-cycle levels (solve/mg.py::LevelOperator,
+    f64 canonical values) at the stored solution's state, on the card:
+    the operands the solve hands K1."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
         matrix_values_layered)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
@@ -126,50 +275,76 @@ def check_kernels(torch, np, img, device):
     print(f"K1 shapes: dofs {lp.ndofs}; (E, Lp, n2d) per V-cycle level "
           f"{[(op.values.shape[3], op.n_planes, op.n2d) for op in levels]}; "
           f"set-up {time.perf_counter() - t0:.2f} s", flush=True)
+    return levels
+
+
+def check_kernels(torch, np, img, device):
+    """Phase 2: K1 vs its plain version at the lc=0.04 shapes, on every
+    V-cycle level where the solve launches each type pair, unmasked and
+    with the BC mask fused in; and its yardsticks there: the time with L2
+    flushed and back to back, the bound, and a library call's time."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+
+    levels = k1_levels(torch, np, img, device)
+    flush = L2Flush(torch, device)
     rng = np.random.default_rng(0)
     xs = [torch.as_tensor(rng.standard_normal(op.mask.numel()),
                           device=device) for op in levels]
-    # the levels each pair runs on in the solve: f64 is the outer
-    # operator; bf16 values with f32 x are the smoothers and spectral
-    # estimates on every level; with f64 x the residuals of every level
-    # but the coarsest (solved densely)
-    n_lv = len(levels)
-    on_levels = {("float64", "float64"): range(1),
-                 ("bfloat16", "float32"): range(n_lv),
-                 ("bfloat16", "float64"): range(n_lv - 1)}
+    on_levels = solve_levels(len(levels))
     results = []
     for vname, xname, tol in PAIRS:
-        errs = []
+        vdt, xdt = getattr(torch, vname), getattr(torch, xname)
+        errs, row = [], {}
         for k in on_levels[(vname, xname)]:
             op = levels[k]
-            v = op.values.to(getattr(torch, vname)).contiguous()
-            xt = xs[k].to(getattr(torch, xname))
-            y_k = layered_spmv.layered_matvec_cuda(v, xt, op.cols,
-                                                   op.row_ptr, op.n2d)
-            torch.cuda.synchronize()
-            y_p = layered_spmv.layered_matvec_plain(v, xt, op.cols,
-                                                    op.row_ids, op.n2d)
-            torch.cuda.synchronize()
-            diff = (y_k.double() - y_p.double())
-            max_abs = float(diff.abs().max())
-            rel = float(torch.linalg.vector_norm(diff)
-                        / torch.linalg.vector_norm(y_p.double()))
-            if not torch.isfinite(y_k).all() or rel > tol:
-                raise RuntimeError(
-                    f"K1 ({vname} values, {xname} x) disagrees with its "
-                    f"plain version on level {k}: rel-L2 {rel:.3e} > {tol:g}")
-            ms = time_ms(lambda: layered_spmv.layered_matvec_cuda(
-                v, xt, op.cols, op.row_ptr, op.n2d))
-            plain_ms = time_ms(lambda: layered_spmv.layered_matvec_plain(
-                v, xt, op.cols, op.row_ids, op.n2d))
-            print(f"K1 ({vname} values, {xname} x) level {k}: rel-L2 "
-                  f"{rel:.3e} (tol {tol:g}), max abs err {max_abs:.3e}; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-            errs.append(max_abs)
-            if k == 0:
-                times = (ms, plain_ms)
+            xt = xs[k].to(xdt)
+            for masked in (False, True):
+                K = layered_spmv.LayeredOperand(
+                    op.values, op.cols, op.row_ptr, op.n2d,
+                    mask=op.mask if masked else None, dtype=vdt)
+                y_k = K(xt)
+                torch.cuda.synchronize()
+                y_p = layered_spmv.layered_matvec_plain(K, xt)
+                torch.cuda.synchronize()
+                diff = (y_k.double() - y_p.double())
+                max_abs = float(diff.abs().max())
+                rel = float(torch.linalg.vector_norm(diff)
+                            / torch.linalg.vector_norm(y_p.double()))
+                tag = "masked" if masked else "unmasked"
+                if not torch.isfinite(y_k).all() or rel > tol:
+                    raise RuntimeError(
+                        f"K1 ({vname} values, {xname} x, {tag}) disagrees "
+                        f"with its plain version on level {k}: rel-L2 "
+                        f"{rel:.3e} > {tol:g}")
+                errs.append(max_abs)
+                ms = time_flushed_ms(lambda: K(xt), flush)
+                b2b = time_b2b_ms(lambda: K(xt))
+                plain_ms = time_ms(
+                    lambda: layered_spmv.layered_matvec_plain(K, xt))
+                bound, bound_by = k1_bound(op, vdt, xdt, masked)
+                lib_fn, lib_name = library_call(torch, op, vdt, xt, masked)
+                lib_ms = time_flushed_ms(lib_fn, flush)
+                lib_b2b = time_b2b_ms(lib_fn)
+                del lib_fn
+                print(f"K1 ({vname} values, {xname} x) level {k} {tag}: "
+                      f"rel-L2 {rel:.3e} (tol {tol:g}), max abs err "
+                      f"{max_abs:.3e}; L2-flushed {ms:.4f} ms, back to back "
+                      f"{b2b:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+                      f"{bound / ms:.1%} of it flushed), plain "
+                      f"{plain_ms:.4f} ms, library ({lib_name}) flushed "
+                      f"{lib_ms:.4f} ms, back to back {lib_b2b:.4f} ms",
+                      flush=True)
+                if k == 0:
+                    row[tag] = dict(ms=ms, ms_b2b=b2b, plain_ms=plain_ms,
+                                    bound_ms=bound, bound_by=bound_by,
+                                    library_ms=lib_ms, library=lib_name)
+        # the JSON line's times: level 0 with the mask fused, as the solve
+        # calls it; the unmasked flushed time beside it
         results.append(dict(pair=(vname, xname), max_abs_err=max(errs),
-                            ms=times[0], plain_ms=times[1]))
+                            ms_unmasked=row["unmasked"]["ms"],
+                            **row["masked"]))
+    del flush
     return results
 
 
@@ -428,7 +603,10 @@ def main() -> int:
         source=f"{PKG}/csrc/layered_spmv.cu",
         replaces=TPU_KERNEL,
         launches=launches[tuple(getattr(torch, n) for n in c["pair"])],
-        max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"])
+        max_abs_err=c["max_abs_err"], ms=c["ms"], ms_b2b=c["ms_b2b"],
+        ms_unmasked=c["ms_unmasked"], plain_ms=c["plain_ms"],
+        bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+        library_ms=c["library_ms"], library=c["library"])
         for c in checks]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

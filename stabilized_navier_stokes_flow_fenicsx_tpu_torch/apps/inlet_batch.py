@@ -30,16 +30,19 @@ LIMITS = 1.0
 
 
 def run_trace_save(Re, img_fname, flowrate_ratio, channel_mesh_size,
-                   num_seeds=NUM_SEEDS, limits=LIMITS, warm=None):
+                   num_seeds=NUM_SEEDS, limits=LIMITS, warm=None,
+                   device=None):
     """Solve -> save -> re-read from disk -> trace -> figures (the
     reference's exact flow, including the checkpoint round-trip:
     streamtrace re-reads the saved velocity, streamtrace.py:590).
 
     warm: previous-Re ChannelSolution on the same (image, lc) — the
-    sweep fast path (flow/channel.py::_solve_ns_flow_warm)."""
+    sweep fast path (flow/channel.py::_solve_ns_flow_warm).
+    device: where the solve and the trace run (default: the card)."""
     try:
         sol = solve_ns_flow(Re, img_fname, flowrate_ratio,
-                            channel_mesh_size, DEFAULT, warm=warm)
+                            channel_mesh_size, DEFAULT, warm=warm,
+                            device=device)
         folder, img_name = make_output_folder(
             Re, img_fname, channel_mesh_size)
         write_run_metadata(
@@ -54,7 +57,8 @@ def run_trace_save(Re, img_fname, flowrate_ratio, channel_mesh_size,
         inlet1, _ = solve_inlet_profiles(img_fname, flowrate_ratio, DEFAULT)
         seed_points = inlet1.mesh.points
         result = for_and_rev_streamtrace(
-            num_seeds, img_fname, mesh, u, seed_points, DEFAULT)
+            num_seeds, img_fname, mesh, u, seed_points, DEFAULT,
+            device=device)
         save_trace_figures(folder, img_fname, result, seed_points,
                            num_seeds, limits)
         print(f"Saved outputs to {folder}", flush=True)
@@ -64,10 +68,10 @@ def run_trace_save(Re, img_fname, flowrate_ratio, channel_mesh_size,
         raise
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     argv = sys.argv[1:] if argv is None else argv
     Re, img_fname, ratio, lc = parse_arguments(argv)
-    return run_trace_save(Re, img_fname, ratio, lc)
+    return run_trace_save(Re, img_fname, ratio, lc, device=device)
 
 
 if __name__ == "__main__":

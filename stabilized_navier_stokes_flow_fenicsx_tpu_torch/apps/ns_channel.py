@@ -4,7 +4,7 @@ Argv contract of reference NavierStokes/NavierStokesChannelFlow.py:81-93:
     ns_channel.py <Re> <img_fname> <flowrate_ratio> [<channel_mesh_size>]
 Reference main() uses Re=1 for the coarse continuation pass (:567) and
 saves Re{Re}ChannelPressure/Velocity.xdmf plus RunParameters.txt.  The
-solve runs on the card when one is present.
+solve runs on the card (``main(argv, device="cpu")`` runs it on the CPU).
 
     python -m stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps.ns_channel \\
         <Re> <img> <ratio> [lc]
@@ -45,12 +45,13 @@ def save_navier_stokes_solution(sol: ChannelSolution, folder: str) -> None:
         sol.mesh, sol.u, "Velocity")
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     argv = sys.argv[1:] if argv is None else argv
     Re, img_fname, ratio, lc = parse_arguments(argv)
     folder, img_name = make_output_folder(Re, img_fname, lc)
 
-    sol = solve_ns_flow(Re, img_fname, ratio, lc, DEFAULT, coarse_Re=1.0)
+    sol = solve_ns_flow(Re, img_fname, ratio, lc, DEFAULT, coarse_Re=1.0,
+                        device=device)
     print(f"Num SNES iterations: {sol.newton_iters}", flush=True)
     print(f"Converged: {sol.converged}  |F| = {sol.newton_resnorm:.3e}",
           flush=True)

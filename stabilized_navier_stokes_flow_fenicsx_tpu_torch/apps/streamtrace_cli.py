@@ -22,7 +22,7 @@ from ..trace.figures import save_trace_figures
 from ..trace.pipeline import for_and_rev_streamtrace
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) != 3:
         raise ValueError(
@@ -35,7 +35,7 @@ def main(argv=None):
     inlet1, _ = solve_inlet_profiles(img_fname, 0.5, DEFAULT)
     seed_points = inlet1.mesh.points
     result = for_and_rev_streamtrace(
-        num_seeds, img_fname, mesh, u, seed_points, DEFAULT)
+        num_seeds, img_fname, mesh, u, seed_points, DEFAULT, device=device)
     folder = os.path.dirname(img_fname) or "."
     save_trace_figures(folder, img_fname, result, seed_points,
                        num_seeds, limits)

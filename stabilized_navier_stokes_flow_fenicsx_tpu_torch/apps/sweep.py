@@ -25,7 +25,7 @@ RATIO = 0.5
 LC = 0.04
 
 
-def sweep_re(img: str, res) -> None:
+def sweep_re(img: str, res, device=None) -> None:
     # Reynolds-sweep warm start: each Re after the first begins its fine
     # Newton from the previous Re's fine solution (same image, same lc)
     # and skips the coarse continuation entirely — the same converged
@@ -34,20 +34,21 @@ def sweep_re(img: str, res) -> None:
     warm = None
     for Re in res:
         print(f"==== Re={Re} {img} ====", flush=True)
-        sol, _, _ = run_trace_save(int(Re), img, RATIO, LC, warm=warm)
+        sol, _, _ = run_trace_save(int(Re), img, RATIO, LC, warm=warm,
+                                   device=device)
         warm = sol
 
 
-def sweep_images(img_dir: str, Re: int) -> None:
+def sweep_images(img_dir: str, Re: int, device=None) -> None:
     for img in sorted(glob.glob(os.path.join(img_dir, "*.png"))):
         print(f"==== Re={Re} {img} ====", flush=True)
         try:
-            run_trace_save(Re, img, RATIO, LC)
+            run_trace_save(Re, img, RATIO, LC, device=device)
         except Exception as e:          # keep sweeping like the shell loop
             print(f"FAILED {img}: {e}", flush=True)
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         raise ValueError(__doc__)
@@ -55,10 +56,10 @@ def main(argv=None):
     if mode == "re":
         img = os.path.abspath(argv[1])
         res = [int(r) for r in argv[2:]] or [40, 50, 60, 70]
-        sweep_re(img, res)
+        sweep_re(img, res, device)
     elif mode == "img":
         Re = int(argv[2]) if len(argv) > 2 else 10
-        sweep_images(argv[1], Re)
+        sweep_images(argv[1], Re, device)
     else:
         raise ValueError(__doc__)
 

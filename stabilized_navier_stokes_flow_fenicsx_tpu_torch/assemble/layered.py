@@ -29,7 +29,7 @@ import torch
 from ..fem.space import MixedVelocityPressureSpace
 from ..utils.device import row_ptr_of, upload
 from .assembly import ASM_CHUNK, residual_of
-from .layered_spmv import layered_spmv
+from .layered_spmv import LayeredOperand
 from .structured import (StructuredAsm, build_structured_plan,
                          matrix_values_structured, residual_structured)
 
@@ -212,21 +212,18 @@ def layered_matvec(
     x: torch.Tensor,              # (ndofs,)
 ) -> torch.Tensor:
     """y = A x in the layered format (``arrays`` carries the pair list:
-    ``cols``, ``row_ids``, ``row_ptr``).  Kernel K1 on a CUDA tensor, its
-    plain version on a CPU tensor."""
-    return layered_spmv(values, x, arrays.cols, arrays.row_ids,
-                        arrays.row_ptr, n2d)
+    ``cols``, ``row_ptr``).  Kernel K1 on a CUDA tensor, its plain
+    version on a CPU tensor; a one-off call (the RHS lift), so it
+    prepares the operand for this call alone."""
+    return LayeredOperand(values, arrays.cols, arrays.row_ptr, n2d)(x)
 
 
 def make_layered_op(arrays, n2d: int, n_planes: int,
                     values: torch.Tensor, mask: torch.Tensor) -> Callable:
-    """BC-projected operator closure A(x) = P A P x + (I - P) x."""
-
-    def op(x):
-        return mask * layered_matvec(arrays, n2d, n_planes, values,
-                                     mask * x) + (1.0 - mask) * x
-
-    return op
+    """BC-projected operator A(x) = P A P x + (I - P) x: K1's prepared
+    operand with the projection fused in."""
+    return LayeredOperand(values, arrays.cols, arrays.row_ptr, n2d,
+                          mask=mask)
 
 
 def layered_diag_blocks(arrays, n2d: int,

@@ -26,8 +26,13 @@ def default_dtype() -> torch.dtype:
 
 
 def default_device() -> torch.device:
-    """The card when one is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card: the port's entry points run on it unless the caller
+    passes ``device="cpu"``.  Raises without a card; never falls back."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: torch.cuda.is_available() is false; pass "
+            "device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,7 +22,8 @@ Precision: the V-cycle's value tensors may be stored in ``pc_dtype``
 estimate run in float32 (mask, iterate and accumulation); the cycle's
 residuals stay in the caller's dtype; the coarsest level is inverted
 densely in float32 and polished by two Newton-Schulz steps.  Every level
-matvec is kernel K1 (assemble/layered_spmv.py) on the card.
+matvec is kernel K1 (assemble/layered_spmv.py) on the card, with the
+level's BC projection fused in.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import Callable, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from ..assemble.layered import layered_matvec
+from ..assemble.layered_spmv import LayeredOperand, project_values
 from ..utils.device import row_ptr_of, upload
 from .precond import block_jacobi
 
@@ -182,20 +183,6 @@ def build_mg_hierarchy(
     return MGHierarchy(levels=tuple(levels), dims=tuple(dims))
 
 
-def _project_values(values, mask, cols, row_ids, n2d, Lp):
-    """P A P on the value tensor: rows scaled by the row-dof mask, cols by
-    the (plane-shifted) col-dof mask."""
-    bs = values.shape[0]
-    mb = mask.reshape(Lp, n2d, bs)
-    mrow = mb[:, row_ids, :].permute(2, 1, 0)        # (bs, E, Lp)
-    mcol = mb[:, cols, :].permute(2, 1, 0)           # (bs, E, Lp)
-    zero = torch.zeros_like(mcol[:, :, :1])
-    mcol_m = torch.cat([zero, mcol[..., :-1]], dim=-1)
-    mcol_p = torch.cat([mcol[..., 1:], zero], dim=-1)
-    mcol_d = torch.stack([mcol_m, mcol, mcol_p], dim=1)   # (bs, 3, E, Lp)
-    return values * mrow[:, None, None, :, :] * mcol_d[None]
-
-
 def _lam_max_tail(Dinv, mv32, mk32, n_pow=12, burn_in=5):
     """|lambda|max(D^-1 A) estimate that is robust on the nonnormal NS
     Jacobian: power iteration with a running MAX of the norm ratios over
@@ -222,8 +209,8 @@ def _lam_max_tail(Dinv, mv32, mk32, n_pow=12, burn_in=5):
 
 @dataclasses.dataclass
 class LevelOperator:
-    """One V-cycle level: its Galerkin values on its pair list (the pair
-    fields are what ``layered_matvec`` reads)."""
+    """One V-cycle level: its Galerkin values on its pair list (K1 reads
+    ``cols`` and ``row_ptr``)."""
 
     values: torch.Tensor      # (bs, bs, 3, E, Lp); level 0 unprojected
     cols: torch.Tensor
@@ -255,15 +242,15 @@ def galerkin_levels(
                          n2d, n_planes)]
     for lev, (n_c, L_c, E_c) in zip(hierarchy.levels, hierarchy.dims):
         f = ops[-1]
-        Vf = _project_values(f.values, f.mask.to(values.dtype), f.cols,
-                             f.row_ids, f.n2d, f.n_planes)
+        Vf = project_values(f.values, f.mask.to(values.dtype), f.cols,
+                            f.row_ids, f.n2d, f.n_planes)
         n_seg_c = 3 * E_c * L_c
         Vc = Vf.new_zeros((bs * bs, n_seg_c + 1))
         Vc.index_add_(1, lev.seg_map, Vf.reshape(bs * bs, -1))
         Vc = Vc[:, :n_seg_c].reshape(bs, bs, 3, E_c, L_c)
         # re-project: aggregates can mix free/constrained dofs
-        Vc = _project_values(Vc, lev.mask.to(Vc.dtype), lev.cols,
-                             lev.row_ids, n_c, L_c)
+        Vc = project_values(Vc, lev.mask.to(Vc.dtype), lev.cols,
+                            lev.row_ids, n_c, L_c)
         ops.append(LevelOperator(Vc, lev.cols, lev.row_ids, lev.row_ptr,
                                  lev.diag_pos, lev.mask.to(Vc.dtype),
                                  n_c, L_c))
@@ -306,32 +293,27 @@ def make_mg_pc(
     smoothers = []
     matvecs = []
     for op in ops:
-        nk, Lk, mk = op.n2d, op.n_planes, op.mask
-        # the V-cycle streams its value tensors in pc_dtype (half the
-        # bytes in bf16); the outer operator keeps the caller's tensor
-        Vk = op.values if pc_dtype is None else op.values.to(pc_dtype)
-        mk32 = mk.to(f32)
-
-        def mv(x, op=op, Vk=Vk, mk=mk, nk=nk, Lk=Lk):
-            return mk * layered_matvec(op, nk, Lk, Vk, mk * x) \
-                + (1.0 - mk) * x
-
-        def mv32(x, op=op, Vk=Vk, mk=mk32, nk=nk, Lk=Lk):
-            return mk * layered_matvec(op, nk, Lk, Vk, mk * x) \
-                + (1.0 - mk) * x
+        # K1's operand: the V-cycle streams its values in pc_dtype (half
+        # the bytes in bf16; the cast rides the layout copy), masked; it
+        # serves f64 residuals (mv) and the f32 smoother (mv32) alike
+        mv = LayeredOperand(op.values, op.cols, op.row_ptr, op.n2d,
+                            mask=op.mask, dtype=pc_dtype)
         matvecs.append(mv)
+        mk32 = mv.masks[f32]
 
-        d = Vk[:, :, 1, op.diag_pos, :]
+        d = op.values[:, :, 1, op.diag_pos, :]
+        if pc_dtype is not None:
+            d = d.to(pc_dtype)
         blocks = d.permute(3, 2, 0, 1).reshape(-1, bs, bs)
         Dinv = block_jacobi(blocks.to(f32), mk32)
         ub = CHEBY_SAFETY * torch.clamp_min(
-            _lam_max_tail(Dinv, mv32, mk32), 1e-6)
+            _lam_max_tail(Dinv, mv, mk32), 1e-6)
         lb = ub / CHEBY_ALPHA
         theta = 0.5 * (ub + lb)
         delta = 0.5 * (ub - lb)
         sigma = theta / delta
 
-        def sm(r, Dinv=Dinv, mv32=mv32, theta=theta, delta=delta,
+        def sm(r, Dinv=Dinv, mv32=mv, theta=theta, delta=delta,
                sigma=sigma, q=cheby_degree):
             rf = r.to(f32)
             x = Dinv(rf) / theta

@@ -87,8 +87,8 @@ def for_and_rev_streamtrace(
     cfg: Config = DEFAULT,
     device=None,
 ) -> StreamtraceResult:
-    """Full forward+reverse trace on ``device`` (default: the card when
-    one is present).
+    """Full forward+reverse trace on ``device`` (default: the card;
+    ``config.default_device`` raises without one).
 
     seed_points: (n, 2) (y, z) forward seeds (inner inlet mesh vertices —
     the reference re-solves the inlet profiles to get them, :190-196).

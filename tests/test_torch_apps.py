@@ -7,6 +7,9 @@ at the CHANNEL size (circle image, ratio 0.5, lc=0.12).
   files as JAX's, and CSVs with the same rows to 1e-6 (the trace's
   tolerance, tests/test_torch_trace_pipeline.py).
 * ``streamtrace_cli.main`` on a saved velocity: the same.
+The port's apps run on the card unless given ``device="cpu"``, which
+every call here passes.
+
 * ``sweep.sweep_re`` with two rungs (``LC`` patched to 0.12, 12 x 12
   seeds, single-mesh continuation for the first rung to keep the test
   short): the second rung starts warm from the first and skips the
@@ -65,11 +68,12 @@ def _assert_same_csvs(folder_t, folder_j):
 def test_inlet_batch_matches_jax(stored, tmp_path, monkeypatch):
     img, warm = stored
     out = {}
-    for name, app in (("port", inlet_batch), ("jax", jax_inlet_batch)):
+    for name, app, kw in (("port", inlet_batch, {"device": "cpu"}),
+                          ("jax", jax_inlet_batch, {})):
         (tmp_path / name).mkdir()
         monkeypatch.chdir(tmp_path / name)
         sol, result, folder = app.run_trace_save(
-            10, img, CHANNEL["ratio"], LC, num_seeds=24, warm=warm)
+            10, img, CHANNEL["ratio"], LC, num_seeds=24, warm=warm, **kw)
         assert bool(sol.converged)
         out[name] = (sol, os.path.abspath(folder))
     (sol, folder_t), (_, folder_j) = out["port"], out["jax"]
@@ -87,11 +91,11 @@ def test_streamtrace_cli_matches_jax(stored, tmp_path):
     base = str(tmp_path / "Re10ChannelVelocity")
     write_xdmf_function(base, warm.mesh, warm.u, "Velocity")
     folders = {}
-    for name, app in (("port", streamtrace_cli),
-                      ("jax", jax_streamtrace_cli)):
+    for name, app, kw in (("port", streamtrace_cli, {"device": "cpu"}),
+                          ("jax", jax_streamtrace_cli, {})):
         (tmp_path / name).mkdir()
         img_copy = shutil.copy(img, tmp_path / name / "circle.png")
-        result = app.main([str(img_copy), base, "Velocity"])
+        result = app.main([str(img_copy), base, "Velocity"], **kw)
         assert len(result.seeds) == 50 * 50
         folders[name] = str(tmp_path / name)
     assert os.path.exists(os.path.join(folders["port"],
@@ -107,16 +111,18 @@ def test_sweep_re_warm_starts_second_rung(stored, tmp_path, monkeypatch):
                         functools.partial(solve_ns_flow, coarse_lc=LC))
     runs = []
 
-    def run_trace_save(Re, img_fname, ratio, lc, warm=None):
+    def run_trace_save(Re, img_fname, ratio, lc, warm=None, device=None):
         sol, result, folder = inlet_batch.run_trace_save(
-            Re, img_fname, ratio, lc, num_seeds=12, warm=warm)
-        runs.append((Re, lc, warm, sol, result))
+            Re, img_fname, ratio, lc, num_seeds=12, warm=warm, device=device)
+        runs.append((Re, lc, warm, sol, result, device))
         return sol, result, folder
 
     monkeypatch.setattr(sweep, "run_trace_save", run_trace_save)
-    sweep.main(["re", img, "10", "11"])
-    (re1, lc1, warm1, sol1, res1), (re2, lc2, warm2, sol2, res2) = runs
+    sweep.main(["re", img, "10", "11"], device="cpu")
+    (re1, lc1, warm1, sol1, res1, dev1), (re2, lc2, warm2, sol2, res2,
+                                          dev2) = runs
     assert (re1, re2) == (10, 11) and lc1 == lc2 == LC
+    assert dev1 == dev2 == "cpu"
     assert warm1 is None and warm2 is sol1
     assert "coarse_ns" in sol1.timings and "coarse_ns" not in sol2.timings
     assert sol1.converged and sol2.converged

@@ -103,19 +103,15 @@ def test_plain_matches_pallas_interpret_f32(problem):
 
 
 def test_cpu_tensor_takes_plain_version(problem):
-    """On the CPU the wrapper runs the plain version and launches
-    nothing; the kernel entry point refuses CPU tensors."""
+    """On the CPU the prepared operand runs the plain version and launches
+    nothing; an x on another device than the operand is refused."""
     _, n2d, n_planes, vals, x, arrays = problem
     before = layered_spmv.LAUNCHES
-    y = layered_spmv.layered_spmv(
-        torch.as_tensor(vals), torch.as_tensor(x), arrays.cols,
-        arrays.row_ids, arrays.row_ptr, n2d)
-    y_plain = layered_spmv.layered_matvec_plain(
-        torch.as_tensor(vals), torch.as_tensor(x), arrays.cols,
-        arrays.row_ids, n2d)
+    op = layered_spmv.LayeredOperand(torch.as_tensor(vals), arrays.cols,
+                                     arrays.row_ptr, n2d)
+    y = op(torch.as_tensor(x))
+    y_plain = layered_spmv.layered_matvec_plain(op, torch.as_tensor(x))
     assert torch.equal(y, y_plain)
     assert layered_spmv.LAUNCHES == before
-    with pytest.raises(ValueError, match="CUDA device"):
-        layered_spmv.layered_matvec_cuda(
-            torch.as_tensor(vals), torch.as_tensor(x), arrays.cols,
-            arrays.row_ptr, n2d)
+    with pytest.raises(ValueError, match="tensor on cpu"):
+        op(torch.as_tensor(x).to("meta"))

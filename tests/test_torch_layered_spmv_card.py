@@ -10,7 +10,9 @@ This file imports no JAX, so it runs where the card is:
 every test skips.  The problem is built by the port alone: the CHANNEL
 mesh (lc=0.12), the Navier-Stokes Jacobian at a seeded state and the
 Galerkin values of each multigrid level (solve/mg.py::galerkin_levels),
-at the pair lists the solve hands K1.  Tolerances (relative L2):
+at the pair lists the solve hands K1.  Each case runs the prepared
+operand (assemble/layered_spmv.py::LayeredOperand), unmasked and with
+the level's BC mask fused in.  Tolerances (relative L2):
 
 * f64 values, f64 x: 1e-12 — only the summation order differs;
 * bf16 values, f32 or f64 x: 5e-3 — the plain version rounds each
@@ -67,41 +69,57 @@ def _rel_l2(a, b) -> float:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
 @pytest.mark.parametrize("vdtype, xdtype, tol", [
     (torch.float64, torch.float64, 1e-12),
     (torch.bfloat16, torch.float32, 5e-3),
     (torch.bfloat16, torch.float64, 5e-3),
 ])
-def test_kernel_matches_plain_on_card(levels, vdtype, xdtype, tol):
+def test_kernel_matches_plain_on_card(levels, vdtype, xdtype, tol, masked):
     assert len(levels) >= 2       # the fine level and at least one RAP
     rng = np.random.default_rng(5)
     for k, op in enumerate(levels):
-        v = op.values.to(vdtype).contiguous()
+        K = layered_spmv.LayeredOperand(
+            op.values, op.cols, op.row_ptr, op.n2d,
+            mask=op.mask if masked else None, dtype=vdtype)
         x = torch.as_tensor(rng.standard_normal(op.mask.numel()),
-                            device=v.device).to(xdtype)
+                            device=op.values.device).to(xdtype)
         before = layered_spmv.LAUNCHES
-        y = layered_spmv.layered_matvec_cuda(v, x, op.cols, op.row_ptr,
-                                             op.n2d)
+        y = K(x)
         torch.cuda.synchronize()
         assert layered_spmv.LAUNCHES == before + 1
-        y_plain = layered_spmv.layered_matvec_plain(v, x, op.cols,
-                                                    op.row_ids, op.n2d)
+        y_plain = layered_spmv.layered_matvec_plain(K, x)
+        assert layered_spmv.LAUNCHES == before + 1
         assert y.dtype == xdtype and torch.isfinite(y).all()
         assert _rel_l2(y, y_plain) <= tol, f"level {k}"
+        if masked:                # the constrained rows are x itself
+            fixed = K.masks[xdtype] == 0
+            assert torch.equal(y[fixed], x[fixed]), f"level {k}"
 
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(levels):
     op = levels[0]
-    x = torch.zeros(op.mask.numel(), dtype=torch.float64,
-                    device=op.values.device)
+    dev = op.values.device
+    K = layered_spmv.LayeredOperand(op.values, op.cols, op.row_ptr, op.n2d,
+                                    mask=op.mask)
+    x = torch.zeros(op.mask.numel(), dtype=torch.float64, device=dev)
+    before = layered_spmv.LAUNCHES
     with pytest.raises(TypeError):
-        layered_spmv.layered_matvec_cuda(op.values.half(), x, op.cols,
-                                         op.row_ptr, op.n2d)
+        layered_spmv.LayeredOperand(op.values, op.cols, op.row_ptr, op.n2d,
+                                    dtype=torch.float16)
+    with pytest.raises(ValueError, match="mask is on cpu"):
+        layered_spmv.LayeredOperand(op.values, op.cols, op.row_ptr, op.n2d,
+                                    mask=op.mask.cpu())
+    with pytest.raises(ValueError, match="cols is on cpu"):
+        layered_spmv.LayeredOperand(op.values, op.cols.cpu(), op.row_ptr,
+                                    op.n2d)
     with pytest.raises(ValueError, match="x must be"):
-        layered_spmv.layered_matvec_cuda(op.values, x[:-4], op.cols,
-                                         op.row_ptr, op.n2d)
+        K(x[:-4])
+    with pytest.raises(ValueError, match="x must be"):
+        K(x.cpu())
+    with pytest.raises(ValueError, match="x must be"):
+        K(x.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
-        layered_spmv.layered_matvec_cuda(
-            op.values.transpose(3, 4).contiguous().transpose(3, 4), x,
-            op.cols, op.row_ptr, op.n2d)
+        K(torch.zeros(2 * x.numel(), dtype=x.dtype, device=dev)[::2])
+    assert layered_spmv.LAUNCHES == before

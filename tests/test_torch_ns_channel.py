@@ -1,6 +1,6 @@
 """The port's ns_channel CLI against the JAX package's continuation solve.
 
-``apps.ns_channel.main(["10", img, "0.5", "0.12"])`` takes the
+``apps.ns_channel.main(["10", img, "0.5", "0.12"], device="cpu")`` takes the
 coarse->fine branch (coarse lc 0.1 at Re=1, interpolation, fine lc 0.12
 at Re=10); its field must match the JAX package's
 ``solve_ns_flow(10, img, 0.5, 0.12, coarse_Re=1.0)`` to relative L2
@@ -25,7 +25,7 @@ from torch_cases import channel_image, rel_l2  # noqa: E402
 def test_ns_channel_main_matches_jax(tmp_path, monkeypatch):
     img = channel_image(tmp_path)
     monkeypatch.chdir(tmp_path)
-    sol, folder = ns_channel.main(["10", img, "0.5", "0.12"])
+    sol, folder = ns_channel.main(["10", img, "0.5", "0.12"], device="cpu")
     assert sol.converged
     assert set(sol.timings) >= {"coarse_ns", "interpolate", "fine_ns"}
     # the JAX reference without its compile-overlap thread
