@@ -8,9 +8,10 @@
    build/torch_kernels/;
 2. assembles the lc=0.04 production channel (230,692 dofs) at the stored
    solution's state, with its multigrid hierarchy, and holds K1's
-   prepared operand against its plain PyTorch version for the three
-   (values, x) type pairs the solve uses, on every V-cycle level where
-   the solve launches each, unmasked and with the BC mask fused in; and
+   prepared operand against its plain PyTorch version for the four
+   (values, x) type pairs the solves of phases 3 and 7 use, on every
+   V-cycle level where they launch each, unmasked and with the BC mask
+   fused in; and
    takes K1's yardsticks there: its time with L2 flushed (256 MB written
    and then 256 MB of others read between launches, outside the CUDA
    events, so L2 is cold and clean; median of 30) and back to
@@ -37,11 +38,37 @@
 6. runs the Reynolds-sweep warm path, ``solve_ns_flow(20, ...,
    warm=<phase 3's solution>)``, and checks that it converged without a
    coarse phase and launched K1;
-7. prints one JSON line of kernel results (error: the largest over the
+7. runs the main path again with the reference's Newton KSP,
+   ``solve_ns_flow(10, circle, 0.5, lc=0.04)`` with
+   ``SolverConfig(ksp_type="tfqmr", pc_newton="mg_cheby")`` (the Newton
+   V-cycle on f64 values; TFQMR breaks down under the bf16 one, see
+   ``run_tfqmr_main_path``): checks that every Newton step ran
+   TFQMR, that it converged within the Newton budget, that it matches
+   channel_ns_prod.npz to rel-L2 < 1e-6 and that it launched K1 for each
+   type pair; prints TFQMR matvecs per Newton step and the wall time;
+8. runs the block-CSR path at the reference's sizes, each case against
+   its bar: the Ghia cavity ``solve_lid_driven(32, 100)`` (<= 12 Newton
+   steps, centreline u_min in (-0.25, -0.14), corner pressure within
+   1e-12 of 0; tests/test_cavity.py); the cavity at n=24 with the
+   fixture's solver settings against tests/fixtures/cavity_ns.npz; the
+   duct SUPS Navier-Stokes problem of tests/parity_fixtures.py, built
+   with the port's modules, against tests/fixtures/duct_ns.npz (both
+   rel-L2 < 1e-6); ``duct_stokes.solve_duct(12, 48, length=4)`` against
+   the developed profile (rel-L2 < 0.12, transverse velocity < 5% of the
+   axial maximum; tests/test_stokes_duct.py); and
+   ``stokes_channel.solve_stokes_channel(circle, 0.5, lc=0.1)`` against
+   tests/fixtures/stokes_channel.npz (rel-L2 < 1e-6).  Prints, for
+   information, ``bcsr_matvec`` on that channel's Stokes matrix against
+   a ``torch.sparse_bsr_tensor`` product of the same values (both L2
+   flushed) and their byte bound;
+9. prints one JSON line of kernel results (error: the largest over the
    levels checked; times, bound and library time: level 0 with the mask
    fused, as the solve calls it, L2 flushed; ``ms_b2b`` back to back,
-   ``ms_unmasked`` flushed without the mask), then the final JSON status
-   line.  The trace runs no hand-written kernel, so it adds no entry.
+   ``ms_unmasked`` flushed without the mask; ``launches``: on the pair's
+   own path, ``path`` — phase 3 for the main path's three pairs, phase 7
+   for f64 values with f32 x; ``launches_tfqmr``: phase 7's for every
+   pair), then the final JSON status line.  The trace and the block-CSR path run no
+   hand-written kernel, so they add no entry.
 
 Exits nonzero, with no result, without a CUDA card or without the
 repository beside it.  Nothing here imports JAX.
@@ -59,21 +86,27 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "stabilized_navier_stokes_flow_fenicsx_tpu_torch"
-FIXTURE = os.path.join(ROOT, "tests", "fixtures", "channel_ns_prod.npz")
-TRACE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "trace_prod.npz")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+FIXTURE = os.path.join(FIXTURES, "channel_ns_prod.npz")
+TRACE_FIXTURE = os.path.join(FIXTURES, "trace_prod.npz")
+BCSR_FIXTURES = tuple(os.path.join(FIXTURES, f"{name}.npz") for name in
+                      ("cavity_ns", "duct_ns", "stokes_channel"))
 RE, RATIO, LC = 10.0, 0.5, 0.04
 RE_WARM = 20.0
 NUM_SEEDS = 200            # reverse grid per side (InletBatchScript.py:41)
 TPU_KERNEL = ("stabilized_navier_stokes_flow_fenicsx_tpu/assemble/"
               "pallas_spmv.py:107")
-# (values dtype, x dtype, rel-L2 tolerance of kernel vs plain):
-# f64 differs only in summation order; with bf16 values the plain version
-# rounds each product to bf16, the kernel takes it in the x dtype
+# (values dtype, x dtype, rel-L2 tolerance of kernel vs plain, the path
+# whose launches the kernels line reports: "main" = phase 3, "tfqmr" =
+# phase 7): f64 differs only in summation order; with bf16 values the
+# plain version rounds each product to bf16, the kernel takes it in the x
+# dtype; f64 values with f32 x (phase 7's mg_cheby smoother) sum in f32
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
 FLUSH_BYTES = 256 * 2 ** 20  # written between flushed launches (> 50 MB L2)
-PAIRS = (("float64", "float64", 1e-12),
-         ("bfloat16", "float32", 5e-3),
-         ("bfloat16", "float64", 5e-3))
+PAIRS = (("float64", "float64", 1e-12, "main"),
+         ("bfloat16", "float32", 5e-3, "main"),
+         ("bfloat16", "float64", 5e-3, "main"),
+         ("float64", "float32", 1e-5, "tfqmr"))
 
 
 def fail(msg: str) -> int:
@@ -156,13 +189,17 @@ def time_b2b_ms(fn, n: int = 100) -> float:
 
 
 def solve_levels(n_lv: int) -> dict:
-    """The V-cycle levels each (values, x) pair runs on in the solve: f64
-    is the outer operator; bf16 values with f32 x are the smoothers and
-    spectral estimates on every level; with f64 x the residuals of every
-    level but the coarsest (solved densely)."""
-    return {("float64", "float64"): range(1),
+    """The V-cycle levels each (values, x) pair runs on in the solves:
+    f64 values with f64 x are the outer operator (level 0) and, in phase
+    7's f64-valued V-cycle, the residuals of every level but the coarsest
+    (solved densely); x in f32 are the smoothers and spectral estimates
+    on every level, with bf16 values (mg_cheby_bf16: the Stokes solve and
+    phase 3's Newton) or f64 ones (mg_cheby: phase 7's Newton); bf16
+    values with f64 x are the bf16 V-cycle's residuals."""
+    return {("float64", "float64"): range(n_lv - 1),
             ("bfloat16", "float32"): range(n_lv),
-            ("bfloat16", "float64"): range(n_lv - 1)}
+            ("bfloat16", "float64"): range(n_lv - 1),
+            ("float64", "float32"): range(n_lv)}
 
 
 def k1_bytes(op, vdtype, xdtype, masked: bool) -> int:
@@ -293,7 +330,7 @@ def check_kernels(torch, np, img, device):
                           device=device) for op in levels]
     on_levels = solve_levels(len(levels))
     results = []
-    for vname, xname, tol in PAIRS:
+    for vname, xname, tol, path in PAIRS:
         vdt, xdt = getattr(torch, vname), getattr(torch, xname)
         errs, row = [], {}
         for k in on_levels[(vname, xname)]:
@@ -341,7 +378,8 @@ def check_kernels(torch, np, img, device):
                                     library_ms=lib_ms, library=lib_name)
         # the JSON line's times: level 0 with the mask fused, as the solve
         # calls it; the unmasked flushed time beside it
-        results.append(dict(pair=(vname, xname), max_abs_err=max(errs),
+        results.append(dict(pair=(vname, xname), path=path,
+                            max_abs_err=max(errs),
                             ms_unmasked=row["unmasked"]["ms"],
                             **row["masked"]))
     del flush
@@ -538,6 +576,224 @@ def run_warm_sweep(torch, np, img, sol, device):
         raise RuntimeError("the warm solve never launched K1")
 
 
+def run_tfqmr_main_path(torch, np, img, device):
+    """Phase 7: the lc=0.04 solve with TFQMR as the Newton KSP."""
+    import dataclasses
+
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import (
+        DEFAULT, SolverConfig)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
+        solve_ns_flow)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import newton
+
+    # TFQMR needs a fixed linear preconditioner: under the bf16 V-cycle
+    # (f32 iterate over bf16 values) its quasi-residual stalled at the
+    # 2,000-matvec budget on Newton steps 2 and 3 and broke down to NaN on
+    # step 4 at this size on the H100 (PERF.md), so its Newton runs
+    # the V-cycle on f64 values (mg_cheby); the Stokes solve keeps
+    # mg_cheby_bf16 with FGMRES
+    scfg = SolverConfig(ksp_type="tfqmr", pc_newton="mg_cheby")
+    cfg = dataclasses.replace(DEFAULT, solver=scfg)
+    tfqmr, runs = newton.tfqmr, []
+
+    def counted_tfqmr(*args, **kwargs):
+        out = tfqmr(*args, **kwargs)
+        runs.append(out.iters)
+        return out
+
+    newton.tfqmr = counted_tfqmr
+    try:
+        layered_spmv.reset_launches()
+        t0 = time.perf_counter()
+        sol = solve_ns_flow(RE, img, RATIO, channel_mesh_size=LC,
+                            coarse_lc=LC, cfg=cfg, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        newton.tfqmr = tfqmr
+    launches = dict(layered_spmv.LAUNCHES_BY_DTYPES)
+    total = layered_spmv.LAUNCHES
+    steps = [row for h in sol.newton_history.values() for row in h]
+    budget = scfg.ksp_restart * 40
+    print(f"TFQMR solve_ns_flow: {wall:.2f} s wall, timings "
+          f"{json.dumps({k: round(v, 4) for k, v in sol.timings.items()})}",
+          flush=True)
+    for name, h in sol.newton_history.items():
+        print(f"{name} (TFQMR): matvecs per Newton step "
+              f"{[int(r[2]) for r in h]}, lambda {[float(r[1]) for r in h]}, "
+              f"|F| {[float('%.3e' % r[0]) for r in h]}", flush=True)
+    by_pair = {f"{str(v).removeprefix('torch.')} values, "
+               f"{str(x).removeprefix('torch.')} x": n
+               for (v, x), n in launches.items()}
+    print(f"TFQMR: {len(steps)} Newton steps, {len(runs)} TFQMR runs, "
+          f"{sum(runs)} matvecs ({sum(r >= budget for r in runs)} at the "
+          f"{budget}-matvec budget); K1 launches {total} {by_pair}",
+          flush=True)
+    if not sol.converged or not np.isfinite(sol.w).all():
+        raise RuntimeError("the TFQMR solve did not converge")
+    if not 0 < len(steps) <= scfg.newton_max_it:
+        raise RuntimeError(f"the TFQMR solve took {len(steps)} Newton steps")
+    if runs != [int(r[2]) for r in steps]:
+        raise RuntimeError(f"Newton steps {len(steps)} did not all run "
+                           f"TFQMR (runs {runs})")
+    rel = float(np.linalg.norm(sol.w - np.load(FIXTURE)["w"])
+                / np.linalg.norm(np.load(FIXTURE)["w"]))
+    print(f"TFQMR rel-L2 vs channel_ns_prod.npz: {rel:.3e} (bar 1e-6)",
+          flush=True)
+    if rel >= 1e-6:
+        raise RuntimeError(f"TFQMR solution rel-L2 {rel:.3e} >= 1e-6")
+    return launches
+
+
+def _rel(np, a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _bar(ok: bool, what: str) -> None:
+    print(f"  {what}: {'ok' if ok else 'MISSED'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"block-CSR path: {what}")
+
+
+def run_bcsr_cases(torch, np, img, device):
+    """Phase 8: the block-CSR path at the reference's sizes."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import (
+        duct_stokes, lid_driven, stokes_channel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.assembly import (
+        assembler_for_mixed)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import (
+        SolverConfig)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.fem.bc import (
+        bc_mask, bc_vector)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.fem.space import (
+        make_mixed_space)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
+        make_ns_sups_kernel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.mesh.structured import (
+        duct_mesh)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
+        solve_newton_bcsr)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.exact import (
+        square_duct_mean, square_duct_profile)
+
+    cavity_fx, duct_fx, channel_fx = (np.load(f) for f in BCSR_FIXTURES)
+
+    t0 = time.perf_counter()
+    r = lid_driven.solve_lid_driven(32, 100.0, device=device)
+    pts = r.mesh.points
+    umin = float(r.u[np.abs(pts[:, 0] - 0.5) < 1e-9, 0].min())
+    corner = int(np.argmin(pts[:, 0] ** 2 + pts[:, 1] ** 2))
+    print(f"Ghia cavity n=32 Re=100: {time.perf_counter() - t0:.2f} s, "
+          f"{len(r.w)} dofs, Newton its {r.newton_iters}, |F| "
+          f"{r.newton_resnorm:.3e}, centreline u_min {umin:.4f} (Ghia "
+          f"-0.2109), corner p {r.p[corner]:.1e}", flush=True)
+    _bar(r.converged and r.newton_iters <= 12,
+         "cavity converged in <= 12 Newton steps")
+    _bar(-0.25 < umin < -0.14, "centreline u_min in (-0.25, -0.14)")
+    _bar(abs(r.p[corner]) < 1e-12, "corner pressure within 1e-12 of 0")
+
+    t0 = time.perf_counter()
+    cfg = SolverConfig(newton_rtol=1e-11, newton_atol=0.0, ksp_rtol=1e-10)
+    r = lid_driven.solve_lid_driven(int(cavity_fx["n"]),
+                                    float(cavity_fx["Re"]), solver=cfg,
+                                    device=device)
+    rel = _rel(np, r.w, cavity_fx["w"])
+    print(f"cavity n=24 (fixture settings): {time.perf_counter() - t0:.2f} "
+          f"s, Newton its {r.newton_iters}, |F| {r.newton_resnorm:.3e}, "
+          f"rel-L2 vs cavity_ns.npz {rel:.3e}", flush=True)
+    _bar(r.converged and rel < 1e-6, "cavity_ns.npz rel-L2 < 1e-6")
+
+    t0 = time.perf_counter()
+    mesh = duct_mesh(int(duct_fx["n_cross"]), int(duct_fx["n_axial"]),
+                     float(duct_fx["length"]))
+    W = make_mixed_space(mesh, 1, 1)
+    asm = assembler_for_mixed(W, device=device)
+    bc = duct_stokes.duct_bcs(mesh, W)
+    pat = asm.pattern
+    out = solve_newton_bcsr(
+        make_ns_sups_kernel("tetrahedron", 1.0 / float(duct_fx["Re"])),
+        asm.ndofs, pat.nnzb, pat.bs, pat.n_rows, asm.arrays,
+        asm.vector(bc_mask(W.ndofs, bc)), asm.vector(bc_vector(W.ndofs, bc)),
+        asm.vector(np.zeros(W.ndofs)), rtol=1e-10, atol=1e-10, max_it=30,
+        ksp_rtol=1e-10)
+    rel = _rel(np, out.x.cpu().numpy(), duct_fx["w"])
+    print(f"duct SUPS NS Re=20: {time.perf_counter() - t0:.2f} s, Newton "
+          f"its {out.iters}, FGMRES its "
+          f"{[int(h[2]) for h in out.history]}, rel-L2 vs duct_ns.npz "
+          f"{rel:.3e}", flush=True)
+    _bar(out.converged and rel < 1e-6, "duct_ns.npz rel-L2 < 1e-6")
+
+    t0 = time.perf_counter()
+    # the reference's domain length >= 4 (SURVEY.md:234) and cells no
+    # larger than its h = 0.1 (BASELINE.json:7): at 10 cells across
+    # (h = 0.1 exactly) P1-P1 sits at rel-L2 0.146 in the JAX package as
+    # in the port, above tests/test_stokes_duct.py's 0.12, which that test
+    # sets at 12 cells across; so 12 across (h = 1/12), 48 along
+    r = duct_stokes.solve_duct(12, 48, length=4.0, device=device)
+    pts = r.mesh.points
+    uex = square_duct_profile(pts[:, 1], pts[:, 2]) / square_duct_mean()
+    err = float(np.sqrt(np.mean((r.u[:, 0] - uex) ** 2))
+                / np.sqrt(np.mean(uex ** 2)))
+    trans = float(np.abs(r.u[:, 1:]).max() / np.abs(r.u[:, 0]).max())
+    print(f"duct Stokes (12, 48, L=4): {time.perf_counter() - t0:.2f} s, "
+          f"{4 * len(pts)} dofs, FGMRES its {r.ksp_iters}, rel-L2 vs the "
+          f"developed profile {err:.4f}, transverse/axial {trans:.4f}",
+          flush=True)
+    _bar(r.converged and err < 0.12 and trans < 0.05,
+         "duct Stokes: developed profile < 0.12, transverse < 5%")
+
+    t0 = time.perf_counter()
+    mesh, W, u, p, res = stokes_channel.solve_stokes_channel(
+        img, float(channel_fx["ratio"]), float(channel_fx["lc"]),
+        device=device)
+    rel = _rel(np, res.x.cpu().numpy(), channel_fx["w"])
+    print(f"Stokes channel lc={float(channel_fx['lc']):g}: "
+          f"{time.perf_counter() - t0:.2f} s, {W.ndofs} dofs, FGMRES its "
+          f"{res.iters} (fixture {int(channel_fx['iters'])}), rel-L2 vs "
+          f"stokes_channel.npz {rel:.3e}", flush=True)
+    _bar(res.converged and rel < 1e-6, "stokes_channel.npz rel-L2 < 1e-6")
+    bcsr_spmv_yardstick(torch, np, W, device)
+
+
+def bcsr_spmv_yardstick(torch, np, W, device):
+    """For information: ``bcsr_matvec`` on the Stokes channel's matrix
+    against ``torch.sparse_bsr_tensor`` @ x on the same values, both L2
+    flushed, beside the bytes bound (values, x and y once, the int64
+    column and row ids)."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.assembly import (
+        assembler_for_mixed, bcsr_matvec)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.stokes import (
+        make_stokes_kernel)
+
+    asm = assembler_for_mixed(W, device=device)
+    pat, a = asm.pattern, asm.arrays
+    V = asm.matrix_values(make_stokes_kernel(
+        "tetrahedron", nu=1.0, mu_T_coeff=DEFAULT.stab.stokes_mu_T_coeff),
+        asm.vector(np.zeros(W.ndofs)))
+    x = asm.vector(np.random.default_rng(0).standard_normal(W.ndofs))
+    A = torch.sparse_bsr_tensor(
+        torch.as_tensor(pat.indptr, dtype=torch.int64, device=device),
+        a.indices, V, size=(W.ndofs, W.ndofs))
+    y = bcsr_matvec(a, pat.n_rows, V, x)
+    y_lib = (A @ x[:, None])[:, 0]
+    torch.cuda.synchronize()
+    err = float((y - y_lib).abs().max())
+    flush = L2Flush(torch, device)
+    ms = time_flushed_ms(lambda: bcsr_matvec(a, pat.n_rows, V, x), flush)
+    lib_ms = time_flushed_ms(lambda: A @ x[:, None], flush)
+    nbytes = (V.numel() * V.element_size() + 2 * W.ndofs * x.element_size()
+              + 2 * pat.nnzb * 8)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"BCSR SpMV (Stokes channel, {pat.nnzb} blocks of 4x4, f64; for "
+          f"information): bcsr_matvec {ms:.4f} ms, torch.sparse_bsr_tensor "
+          f"{lib_ms:.4f} ms, bytes bound {bound:.4f} ms; max abs diff "
+          f"{err:.2e}", flush=True)
+    del flush
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -546,9 +802,9 @@ def main() -> int:
         return fail(f"needs torch and numpy ({e})")
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: needs a CUDA card")
-    if not os.path.isdir(os.path.join(ROOT, PKG)) \
-            or not os.path.exists(FIXTURE) \
-            or not os.path.exists(TRACE_FIXTURE):
+    if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
+            os.path.exists(f)
+            for f in (FIXTURE, TRACE_FIXTURE) + BCSR_FIXTURES):
         return fail(f"run from a checkout of the repository ({PKG}/ and "
                     f"tests/fixtures/ beside this script)")
     sys.path.insert(0, ROOT)
@@ -584,16 +840,25 @@ def main() -> int:
         inlet1 = run_trace(torch, np, img, sol, device)
         check_trace_arithmetic(torch, np, sol, inlet1, device)
         run_warm_sweep(torch, np, img, sol, device)
+        tfqmr_launches = run_tfqmr_main_path(torch, np, img, device)
+        run_bcsr_cases(torch, np, img, device)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
         traceback.print_exc()
         return fail(str(e))
-    missing = [c["pair"] for c in checks
-               if launches.get(tuple(getattr(torch, n) for n in c["pair"]),
-                               0) == 0]
+    by_path = {"main": launches, "tfqmr": tfqmr_launches}
+
+    def count(c, path):
+        return by_path[path].get(tuple(getattr(torch, n) for n in c["pair"]),
+                                 0)
+
+    missing = [c["pair"] for c in checks if count(c, c["path"]) == 0]
     if missing:
-        return fail(f"the solve never launched K1 for {missing}")
+        return fail(f"the solve of its path never launched K1 for {missing}")
+    missing = [c["pair"] for c in checks if count(c, "tfqmr") == 0]
+    if missing:
+        return fail(f"the TFQMR solve never launched K1 for {missing}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -602,7 +867,8 @@ def main() -> int:
         route="cuda",
         source=f"{PKG}/csrc/layered_spmv.cu",
         replaces=TPU_KERNEL,
-        launches=launches[tuple(getattr(torch, n) for n in c["pair"])],
+        launches=count(c, c["path"]), path=c["path"],
+        launches_tfqmr=count(c, "tfqmr"),
         max_abs_err=c["max_abs_err"], ms=c["ms"], ms_b2b=c["ms_b2b"],
         ms_unmasked=c["ms_unmasked"], plain_ms=c["plain_ms"],
         bound_ms=c["bound_ms"], bound_by=c["bound_by"],

@@ -89,9 +89,16 @@ class SolverConfig:
     # Pass ksp_rtol=1e-8 for inner-solve parity with the reference.
     ksp_rtol: float = 1e-5
     ksp_restart: int = 50            # FGMRES restart length
-    # Newton's inner Krylov solver is FGMRES (the JAX package's default;
-    # the reference's tfqmr, NavierStokesChannelFlow.py:198-202, is not
-    # ported).
+    # Newton inner Krylov: "fgmres" (default — robust on the stabilized
+    # saddle point and cheapest per matvec here) or "tfqmr", the
+    # reference's actual SNES KSP (NavierStokesChannelFlow.py:198-202)
+    # for exact algorithmic parity; tfqmr gets the same total matvec
+    # budget (restart * max_restarts).  Any other name raises.  TFQMR is
+    # not flexible: give it a fixed linear preconditioner, pc_newton=
+    # "mg_cheby" — under the bf16 V-cycle (f32 iterate over bf16 values)
+    # it stalled at the matvec budget and broke down to NaN at lc=0.04 on
+    # the H100 (PERF.md).
+    ksp_type: str = "fgmres"
     # double-float iterative refinement: "auto" enables it exactly when
     # the solve dtype is float32, which the port never uses (f64 solves),
     # so it resolves to off.  The double-float stack is not ported:

@@ -13,6 +13,7 @@ from typing import Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from .assemble.assembly import AsmArrays, BlockPattern
 from .assemble.layered import LayeredArrays
 from .assemble.structured import StructuredAsm
 from .solve.mg import MGHierarchy, MGLevel
@@ -21,6 +22,20 @@ from .solve.mg import MGHierarchy, MGLevel
 def structured_asm(fields: Mapping[str, np.ndarray], device) -> StructuredAsm:
     """``StructuredAsm`` (assemble/structured.py) from its numpy fields."""
     return StructuredAsm.from_numpy(fields, device)
+
+
+def asm_arrays(fields: Mapping[str, np.ndarray], device) -> AsmArrays:
+    """``AsmArrays`` (assemble/assembly.py) from its numpy fields."""
+    return AsmArrays.from_numpy(fields, device)
+
+
+def block_pattern(fields: Mapping) -> BlockPattern:
+    """``BlockPattern`` (host numpy) from its fields; the JAX package's is
+    a dataclass, so ``dataclasses.asdict`` of it serves."""
+    return BlockPattern(
+        n_rows=int(fields["n_rows"]), bs=int(fields["bs"]),
+        **{k: np.asarray(fields[k]) for k in
+           ("indptr", "indices", "row_ids", "ell_pos", "diag_pos")})
 
 
 def layered_arrays(fields: Mapping, device) -> LayeredArrays:

@@ -44,6 +44,7 @@ from ..mesh.extrude import extrude_channel
 from ..mesh.image import get_contours, load_image, optimize_contour
 from ..mesh.tri2d import triangulate_cross_section
 from ..solve.driver import solve_linear_layered, solve_newton_layered
+from ..solve.newton import KSP_TYPES
 from ..utils.device import sync
 from .inlet import InletProfile, solve_inlet_profiles
 
@@ -62,18 +63,22 @@ class ChannelSolution:
     timings: dict
     stokes_iters: int = 0
     # Newton history per solve ("coarse_ns_Re<r>" per ladder rung, then
-    # "fine_ns"): rows [|F| after step, lambda, FGMRES its, FGMRES |r|]
+    # "fine_ns"): rows [|F| after step, lambda, Krylov its (TFQMR:
+    # matvecs), Krylov |r|]
     newton_history: Dict[str, np.ndarray] = dataclasses.field(
         default_factory=dict)
 
 
 def generate_channel_mesh(
-    img_fname: str, lc: float, cfg: Config = DEFAULT,
+    img_fname: str, lc: float, cfg: Config = DEFAULT, layered: bool = True,
 ) -> Tuple[SimplexMesh, np.ndarray, np.ndarray]:
-    """Image -> marked 3D channel tet mesh (reference image2gmsh3D.main)
-    with the plane-major node grid the layered operator needs.
+    """Image -> marked 3D channel tet mesh (reference image2gmsh3D.main).
 
     Returns (mesh, inner_loop, outer_loop) in (y, z) coordinates.
+    layered=True (the default here, unlike the JAX package) keeps the
+    plane-major node grid the layered operator needs; layered=False
+    compacts the nodes away from the solid splitter interior, as the
+    block-CSR apps (apps/stokes_channel.py) mesh it.
     """
     gray = load_image(img_fname)
     contours = get_contours(gray, cfg.contour)
@@ -90,7 +95,8 @@ def generate_channel_mesh(
     outer_loop = outer_c[:, [1, 0]]
     tri = triangulate_cross_section(
         inner_loop, outer_loop, lc, cfg.channel.half_width)
-    mesh = extrude_channel(tri, inner_loop, cfg.channel, lc, compact=False)
+    mesh = extrude_channel(tri, inner_loop, cfg.channel, lc,
+                           compact=not layered)
     return mesh, inner_loop, outer_loop
 
 
@@ -196,7 +202,8 @@ def _newton(kernel, st: LayeredSetup, w0, scfg):
     return solve_newton_layered(
         kernel, lp.n2d, lp.n_planes, lp.bs, lp.arrays, st.mask, st.g, w0,
         lp.E, scfg.newton_rtol, scfg.newton_atol, scfg.newton_max_it,
-        scfg.ksp_rtol, scfg.ksp_restart, 40, scfg.pc_newton, st.mg)
+        scfg.ksp_rtol, scfg.ksp_restart, 40, scfg.pc_newton, st.mg,
+        scfg.ksp_type)
 
 
 def solve_ns_flow(
@@ -234,6 +241,9 @@ def solve_ns_flow(
                                and dtype == torch.float32):
         raise NotImplementedError(
             "double-float refinement is not ported: solve in float64")
+    if scfg.ksp_type not in KSP_TYPES:
+        raise ValueError(f"ksp_type={scfg.ksp_type!r}: expected one of "
+                         f"{KSP_TYPES}")
     timings = {}
 
     t0 = time.perf_counter()

@@ -1,11 +1,12 @@
-"""Flexible GMRES with right preconditioning.
+"""Krylov solvers: CG, BiCGStab, TFQMR, FGMRES and MINRES.
 
-Counterpart of the JAX package's ``solve/krylov.py::fgmres`` (the
-config-default Krylov method).  The vectors live on the device; the
-(m+1) x m Hessenberg matrix, its Givens rotations and the least-squares
-back-substitution are a few hundred scalars, so they live on the host,
-with one device->host read of the new Hessenberg column per Arnoldi step
-(where the JAX loop tested its ``done`` flag on the device).
+Counterparts of the JAX package's ``solve/krylov.py``.  The vectors live
+on the device; the scalar recurrences (step lengths, Givens rotations,
+convergence tests) run on the host in float64, with one device->host
+read of the inner products each step needs (where the JAX loops test
+their flags on the device).  Every method keeps the JAX arithmetic order
+and stopping rules, so iteration counts agree to the last bits of the
+inner products.
 """
 
 from __future__ import annotations
@@ -21,13 +22,159 @@ import torch
 @dataclasses.dataclass
 class KrylovResult:
     x: torch.Tensor
-    iters: int             # Arnoldi steps performed over all cycles
-    resnorm: float         # final true residual norm |b - A x|
+    iters: int             # iterations (TFQMR: matvecs) performed
+    resnorm: float         # final residual norm (see each method)
     converged: bool
 
 
 def _ident(x):
     return x
+
+
+def _norm(v: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(v))
+
+
+def _reads(*scalars: torch.Tensor):
+    """Several 0-d tensors to Python floats with one device->host read."""
+    return torch.stack(scalars).tolist()
+
+
+def _div(a: float, b: float) -> float:
+    """a / b with IEEE semantics (inf or nan at b == 0), as the device
+    arithmetic of the JAX loops gives it."""
+    try:
+        return a / b
+    except ZeroDivisionError:
+        if a == 0.0 or math.isnan(a):
+            return math.nan
+        return math.copysign(math.inf, a) * math.copysign(1.0, b)
+
+
+def cg(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
+       ) -> KrylovResult:
+    """Preconditioned conjugate gradients (SPD systems); stops when
+    |r| <= max(rtol |b|, atol) (the recursive residual)."""
+    M = M or _ident
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - A(x)
+    z = M(r)
+    p = z
+    tol = max(rtol * _norm(b), atol)
+    rn, rz = _reads(torch.linalg.vector_norm(r), torch.dot(r, z))
+    it = 0
+    while rn > tol and it < max_it:
+        Ap = A(p)
+        alpha = _div(rz, float(torch.dot(p, Ap)))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rn, rz_new = _reads(torch.linalg.vector_norm(r), torch.dot(r, z))
+        p = z + _div(rz_new, rz) * p
+        rz = rz_new
+        it += 1
+    return KrylovResult(x, it, rn, rn <= tol)
+
+
+def bicgstab(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
+             ) -> KrylovResult:
+    """Right-preconditioned BiCGStab; stops on |r| <= max(rtol |b|, atol)
+    or a breakdown (|rho| or |omega| below 1e-300)."""
+    M = M or _ident
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - A(x)
+    tol = max(rtol * _norm(b), atol)
+    rhat = r
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    rho = alpha = omega = 1.0
+    it, brk = 0, False
+    rn, rho_new = _reads(torch.linalg.vector_norm(r), torch.dot(rhat, r))
+    while rn > tol and it < max_it and not brk:
+        beta = _div(rho_new, rho) * _div(alpha, omega)
+        p = r + beta * (p - omega * v)
+        phat = M(p)
+        v = A(phat)
+        alpha = _div(rho_new, float(torch.dot(rhat, v)))
+        s = r - alpha * v
+        shat = M(s)
+        t = A(shat)
+        tt, ts = _reads(torch.dot(t, t), torch.dot(t, s))
+        omega = ts / tt if tt > 0 else 0.0
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        brk = abs(rho) < 1e-300 or abs(omega) < 1e-300
+        it += 1
+        rn, rho_new = _reads(torch.linalg.vector_norm(r), torch.dot(rhat, r))
+    return KrylovResult(x, it, rn, rn <= tol)
+
+
+def tfqmr(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
+          ) -> KrylovResult:
+    """Right-preconditioned transpose-free QMR (Freund 1993).
+
+    The reference's Newton Krylov: PETSc ``ksp_type tfqmr`` + ASM
+    (NavierStokes/NavierStokesChannelFlow.py:198-202).  Each loop pass is
+    a HALF-step with one operator and one preconditioner apply, so
+    ``max_it`` and ``iters`` count matvecs, as PETSc does.  The parity of
+    the half-step picks its branch on the host: an even half-step forms
+    the new step length, an odd one the new search direction.
+
+    Stops on the quasi-residual bound ``tau * sqrt(it + 1) <= max(rtol
+    |b|, atol)`` (what ``converged`` reports) or a breakdown (|sigma| or
+    |rho| below 1e-30).  ``resnorm`` is the TRUE residual |b - A x|,
+    computed once after the loop.
+    """
+    M = M or _ident
+    x = torch.zeros_like(b) if x0 is None else x0
+    r0 = b - A(x)
+    tol = max(rtol * _norm(b), atol)
+    rstar = r0
+    w = u = r0
+    Mu = M(r0)
+    Bu = A(Mu)
+    v = Bu
+    d = torch.zeros_like(b)
+    tau, rho = _reads(torch.linalg.vector_norm(r0), torch.dot(r0, r0))
+    theta = eta = sigma = 0.0
+    alpha = 1.0
+    tiny = 1e-30
+    it, brk = 0, False
+    while tau * math.sqrt(it + 1) > tol and it < max_it and not brk:
+        even = it % 2 == 0
+        if even:
+            # v is unchanged over the odd half-step that follows, so its
+            # sigma serves both halves
+            sigma = float(torch.dot(rstar, v))
+            alpha = _div(rho, sigma)
+        w = w - alpha * Bu
+        d = Mu + _div(theta * theta * eta, alpha) * d
+        if even:
+            wn = _norm(w)
+        else:
+            wn, rho_new = _reads(torch.linalg.vector_norm(w),
+                                 torch.dot(rstar, w))
+        theta = _div(wn, tau)
+        c = 1.0 / math.sqrt(1.0 + theta * theta)
+        tau = tau * theta * c
+        eta = c * c * alpha
+        x = x + eta * d
+        if even:
+            u = u - alpha * v
+            Mu = M(u)
+            Bu_prev, Bu = Bu, A(Mu)
+        else:
+            beta = _div(rho_new, rho)
+            u = w + beta * u
+            Mu = M(u)
+            Bu_prev, Bu = Bu, A(Mu)
+            v = Bu + beta * (Bu_prev + beta * v)
+            rho = rho_new
+        brk = abs(sigma) < tiny or abs(rho) < tiny
+        it += 1
+    converged = tau * math.sqrt(it + 1) <= tol
+    return KrylovResult(x, it, _norm(b - A(x)), converged)
 
 
 def fgmres(
@@ -44,16 +191,16 @@ def fgmres(
     preconditioned vectors, so M may itself be an inner iteration.  Each
     restart cycle ends with an exact residual recompute, and the solve
     stops when |b - A x| <= max(rtol |b|, atol) or after
-    ``max_restarts`` cycles."""
+    ``max_restarts`` cycles; ``resnorm`` is that true residual."""
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else x0
     n = b.shape[0]
     m = restart
-    tol = max(rtol * float(torch.linalg.vector_norm(b)), atol)
+    tol = max(rtol * _norm(b), atol)
 
     def arnoldi_cycle(x):
         r = b - A(x)
-        beta = float(torch.linalg.vector_norm(r))
+        beta = _norm(r)
         V = b.new_zeros((m + 1, n))
         Z = b.new_zeros((m, n))
         H = np.zeros((m + 1, m))
@@ -100,13 +247,71 @@ def fgmres(
         yt = torch.as_tensor(y[:steps], dtype=b.dtype, device=b.device)
         return x + yt @ Z[:steps], steps
 
-    rn = float(torch.linalg.vector_norm(b - A(x)))
+    rn = _norm(b - A(x))
     cycles = its = 0
     while rn > tol and cycles < max_restarts:
         x, steps = arnoldi_cycle(x)
         # exact residual recompute per cycle (the Givens estimate drifts
         # under a low-precision preconditioner)
-        rn = float(torch.linalg.vector_norm(b - A(x)))
+        rn = _norm(b - A(x))
         cycles += 1
         its += steps
     return KrylovResult(x, its, rn, rn <= tol)
+
+
+def minres(
+    A: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    M: Optional[Callable] = None,
+    rtol: float = 1e-8,
+    atol: float = 0.0,
+    max_it: int = 10000,
+) -> KrylovResult:
+    """Preconditioned MINRES (Paige-Saunders) for symmetric indefinite A.
+
+    M must be symmetric positive definite (e.g. the block-diagonal
+    diag(diag(A_uu), M_p) preconditioner of the Taylor-Hood saddle
+    point).  Stops when the recurrence's residual estimate phibar <=
+    max(rtol beta1, atol), beta1 = sqrt(r0 . M r0); ``resnorm`` is that
+    estimate.
+    """
+    M = M or _ident
+    x = torch.zeros_like(b) if x0 is None else x0
+    r1 = b - A(x)
+    y = M(r1)
+    beta1 = float(torch.dot(r1, y))
+    beta1 = math.sqrt(beta1) if beta1 >= 0 else math.nan
+    tol = max(rtol * beta1, atol)
+    eps_t = torch.finfo(b.dtype).tiny
+    r2 = r1
+    w = w2 = torch.zeros_like(b)
+    oldb, beta, dbar, epsln, phibar = 0.0, beta1, 0.0, 0.0, beta1
+    cs, sn = -1.0, 0.0
+    it = 0
+    while phibar > tol and it < max_it:
+        v = y / max(beta, eps_t)
+        y2 = A(v)
+        if it >= 1:
+            y2 = y2 - (beta / max(oldb, eps_t)) * r1
+        alfa = float(torch.dot(v, y2))
+        y2 = y2 - (alfa / max(beta, eps_t)) * r2
+        r1, r2 = r2, y2
+        y = M(r2)
+        oldb = beta
+        beta = math.sqrt(max(float(torch.dot(r2, y)), 0.0))
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = max(math.sqrt(gbar * gbar + beta * beta), eps_t)
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        w1, w2 = w2, w
+        w = (v - oldeps * w1 - delta * w2) / gamma
+        x = x + phi * w
+        it += 1
+    return KrylovResult(x, it, phibar, phibar <= tol)

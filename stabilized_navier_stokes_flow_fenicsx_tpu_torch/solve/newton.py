@@ -1,4 +1,4 @@
-"""Damped Newton with FGMRES inner solves — the SNES equivalent.
+"""Damped Newton with Krylov inner solves — the SNES equivalent.
 
 Counterpart of the JAX package's ``solve/newton.py::newton_solve`` with
 the host loop in place of ``lax.while_loop``.  The reference sets
@@ -15,7 +15,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .krylov import fgmres
+from .krylov import fgmres, tfqmr
+
+KSP_TYPES = ("fgmres", "tfqmr")
 
 
 @dataclasses.dataclass
@@ -25,7 +27,8 @@ class NewtonResult:
     resnorm: float
     converged: bool
     # per-iteration history (iters, 4):
-    #   [|F| after step, line-search lambda, KSP iters, KSP final resnorm]
+    #   [|F| after step, line-search lambda, KSP iters (TFQMR: matvecs),
+    #    KSP final resnorm]
     history: np.ndarray
     # True when the line search failed outright and the full step did not
     # reduce ||F|| (SNES would report a line-search divergence); the
@@ -50,9 +53,16 @@ def newton_solve(
     ksp_restart: int = 50,
     ksp_max_restarts: int = 40,
     max_backtracks: int = 8,
+    ksp: str = "fgmres",
 ) -> NewtonResult:
-    """Newton to ||F|| <= max(rtol ||F(x0)||, atol) with FGMRES steps
-    and a backtracking line search (Armijo factor 1 - 1e-4 lambda)."""
+    """Newton to ||F|| <= max(rtol ||F(x0)||, atol) with Krylov steps and
+    a backtracking line search (Armijo factor 1 - 1e-4 lambda).
+
+    ksp="fgmres" (default) or "tfqmr", the reference's SNES KSP
+    (NavierStokesChannelFlow.py:198-202); TFQMR gets FGMRES's total
+    matvec budget, restart * max_restarts.  Any other name raises."""
+    if ksp not in KSP_TYPES:
+        raise ValueError(f"ksp={ksp!r}: expected one of {KSP_TYPES}")
     x = x0
     F = residual(x0)
     fnorm = _norm(F)
@@ -61,9 +71,13 @@ def newton_solve(
     it, stalled = 0, False
     while fnorm > tol and it < max_it and not stalled:
         vals = jac_values(x)
-        sol = fgmres(make_operator(vals), -F, M=make_pc(vals),
-                     rtol=ksp_rtol, restart=ksp_restart,
-                     max_restarts=ksp_max_restarts)
+        A, M = make_operator(vals), make_pc(vals)
+        if ksp == "tfqmr":
+            sol = tfqmr(A, -F, M=M, rtol=ksp_rtol,
+                        max_it=ksp_restart * ksp_max_restarts)
+        else:
+            sol = fgmres(A, -F, M=M, rtol=ksp_rtol, restart=ksp_restart,
+                         max_restarts=ksp_max_restarts)
         dx = sol.x
 
         # backtracking on ||F||; the full step's trial is kept for the

@@ -1,6 +1,7 @@
-"""Node-block Jacobi preconditioner.
+"""Jacobi-family preconditioners for the block-CSR and layered operators.
 
-Counterpart of the JAX package's ``solve/precond.py::block_jacobi``: with
+Counterparts of the JAX package's ``solve/precond.py::{identity_pc,
+block_jacobi, scalar_jacobi}``.  ``block_jacobi``: with
 the equal-order P1-P1 layout every mesh node carries a (dim+1)x(dim+1)
 diagonal block coupling its velocity components and pressure; inverting
 all of them is one batched 4x4 inverse.  Constrained (Dirichlet)
@@ -13,6 +14,10 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+
+def identity_pc() -> Callable:
+    return lambda x: x
 
 
 def block_jacobi(diag_blocks: torch.Tensor, mask: torch.Tensor) -> Callable:
@@ -33,5 +38,15 @@ def block_jacobi(diag_blocks: torch.Tensor, mask: torch.Tensor) -> Callable:
     def apply(x):
         xb = x.reshape(n, 1, bs).to(Dinv.dtype)
         return (Dinv * xb).sum(dim=-1).reshape(-1).to(x.dtype)
+
+    return apply
+
+
+def scalar_jacobi(diag: torch.Tensor, mask: torch.Tensor) -> Callable:
+    """x -> x / d with d = diag on free dofs and 1 on constrained ones."""
+    inv = 1.0 / (mask * diag + (1.0 - mask))
+
+    def apply(x):
+        return inv * x
 
     return apply

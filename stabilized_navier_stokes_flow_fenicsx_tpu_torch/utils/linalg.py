@@ -1,8 +1,8 @@
-"""Closed-form 3x3 determinant and inverse (element geometry).
+"""Closed-form 2x2 and 3x3 determinant and inverse (element geometry).
 
-Counterpart of the JAX package's ``utils/linalg.py`` for the 3x3 element
-Jacobians: pure elementwise arithmetic, batched over any leading axes and
-differentiable under ``torch.func``.
+Counterpart of the JAX package's ``utils/linalg.py`` for the triangle and
+tetrahedron element Jacobians: pure elementwise arithmetic, batched over
+any leading axes and differentiable under ``torch.func``.
 """
 
 from __future__ import annotations
@@ -10,14 +10,18 @@ from __future__ import annotations
 import torch
 
 
-def _check3(A: torch.Tensor) -> None:
-    if A.shape[-2:] != (3, 3):
-        raise ValueError(f"expected (..., 3, 3), got {tuple(A.shape)}")
+def _size(A: torch.Tensor) -> int:
+    n = A.shape[-1]
+    if A.shape[-2:] not in ((2, 2), (3, 3)):
+        raise ValueError(f"expected (..., 2, 2) or (..., 3, 3), got "
+                         f"{tuple(A.shape)}")
+    return n
 
 
 def det_small(A: torch.Tensor) -> torch.Tensor:
-    """Determinant of (..., 3, 3)."""
-    _check3(A)
+    """Determinant of (..., n, n), n in {2, 3}."""
+    if _size(A) == 2:
+        return A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
     return (
         A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
         - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
@@ -26,8 +30,14 @@ def det_small(A: torch.Tensor) -> torch.Tensor:
 
 
 def inv_small(A: torch.Tensor) -> torch.Tensor:
-    """Inverse of (..., 3, 3) by the adjugate."""
+    """Inverse of (..., n, n), n in {2, 3}, by the adjugate."""
     d = det_small(A)
+    if A.shape[-1] == 2:
+        adj = torch.stack([
+            torch.stack([A[..., 1, 1], -A[..., 0, 1]], dim=-1),
+            torch.stack([-A[..., 1, 0], A[..., 0, 0]], dim=-1),
+        ], dim=-2)
+        return adj / d[..., None, None]
 
     def cof(i0, i1, j0, j1):
         return A[..., i0, j0] * A[..., i1, j1] - A[..., i0, j1] * A[..., i1, j0]

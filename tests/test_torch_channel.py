@@ -9,8 +9,14 @@ The Reynolds-sweep warm path, ``solve_ns_flow(20, ..., warm=<the stored
 Re=10 CHANNEL solution>)``, must match the JAX package's warm solve to
 relative L2 < 1e-6 with Newton iterations within +-1, and skip every
 coarse phase.
+
+``SolverConfig(ksp_type="tfqmr")`` must reach TFQMR in every Newton step
+of the cold and the warm path (and FGMRES in none), with the cold
+solution at the same bar against the fixture; an unknown ``ksp_type``
+raises before any solve.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -29,6 +35,8 @@ from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow import (  # noqa: E402
     channel)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (  # noqa: E402
     solve_ns_flow)
+from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import (  # noqa: E402
+    newton)
 
 from parity_fixtures import CHANNEL, FIXTURE_DIR  # noqa: E402
 from torch_cases import channel_image, rel_l2  # noqa: E402
@@ -88,3 +96,44 @@ def test_warm_path_declines_another_mesh(tmp_path):
         20.0, img, None, None, CHANNEL["lc"], DEFAULT, None, "cpu", warm,
         timings) is None
     assert set(timings) == {"fine_mesh"}
+
+
+def test_tfqmr_reaches_cold_and_warm_newton(tmp_path, monkeypatch):
+    img = channel_image(tmp_path)
+    matvecs = []
+    tfqmr = newton.tfqmr
+
+    def counting_tfqmr(*args, **kwargs):
+        out = tfqmr(*args, **kwargs)
+        matvecs.append(out.iters)
+        return out
+
+    def no_fgmres(*args, **kwargs):
+        raise AssertionError("the Newton step ran FGMRES")
+
+    monkeypatch.setattr(newton, "tfqmr", counting_tfqmr)
+    monkeypatch.setattr(newton, "fgmres", no_fgmres)
+    cfg = dataclasses.replace(DEFAULT, solver=SolverConfig(ksp_type="tfqmr"))
+    sol = solve_ns_flow(CHANNEL["Re"], img, CHANNEL["ratio"],
+                        channel_mesh_size=CHANNEL["lc"],
+                        coarse_lc=CHANNEL["lc"], cfg=cfg, device="cpu")
+    w_ref = np.load(FIXTURE_DIR / "channel_ns.npz")["w"]
+    assert sol.converged and rel_l2(sol.w, w_ref) < 1e-6
+    steps = np.concatenate([h[:, 2] for h in sol.newton_history.values()])
+    assert len(steps) > 0 and matvecs == steps.tolist()
+
+    matvecs.clear()
+    sol20 = solve_ns_flow(20.0, img, CHANNEL["ratio"],
+                          channel_mesh_size=CHANNEL["lc"], cfg=cfg,
+                          warm=sol, device="cpu")
+    assert sol20.converged and "coarse_ns" not in sol20.timings
+    assert matvecs == sol20.newton_history["fine_ns"][:, 2].tolist()
+    assert len(matvecs) == sol20.newton_iters > 0
+    assert rel_l2(sol20.w, sol.w) > 1e-3          # Re=20 moved the field
+
+
+def test_unknown_ksp_type_raises(tmp_path):
+    cfg = DEFAULT.__class__(solver=SolverConfig(ksp_type="gmres"))
+    with pytest.raises(ValueError, match="ksp_type='gmres'"):
+        solve_ns_flow(10.0, channel_image(tmp_path), 0.5, cfg=cfg,
+                      device="cpu")
