@@ -61,13 +61,40 @@
    information, ``bcsr_matvec`` on that channel's Stokes matrix against
    a ``torch.sparse_bsr_tensor`` product of the same values (both L2
    flushed) and their byte bound;
-9. prints one JSON line of kernel results (error: the largest over the
-   levels checked; times, bound and library time: level 0 with the mask
-   fused, as the solve calls it, L2 flushed; ``ms_b2b`` back to back,
-   ``ms_unmasked`` flushed without the mask; ``launches``: on the pair's
-   own path, ``path`` — phase 3 for the main path's three pairs, phase 7
-   for f64 values with f32 x; ``launches_tfqmr``: phase 7's for every
-   pair), then the final JSON status line.  The trace and the block-CSR path run no
+9. DFG 2D-1, ``apps.dfg2d.solve_dfg2d(0.35)`` (17,283 nodes, 51,849
+   dofs; device assembly, host SuperLU Newton updates) against the bars
+   of tests/test_dfg.py: converged, Cd within 1% and Cl within 3% of the
+   literature values, both surface-integral coefficients within 3%;
+   prints nodes, Newton steps per rung, Cd, Cl and the wall split (mesh,
+   Stokes LU, device assembly, scipy indexing, SuperLU);
+10. the Taylor-Hood duct, ``apps.duct_stokes_th.solve_duct_th(6, 12,
+   inlet="poiseuille")`` with ``method="schur"`` (fieldsplit FGMRES on
+   the card) and ``method="lu"``: both within 0.06 of the developed
+   profile (tests/test_taylor_hood.py), and within rel-L2 1e-6 of each
+   other in velocity and in pressure on the dofs the LU does not pin as
+   null pivots (there the Schur solve is undetermined); prints the outer
+   FGMRES and total inner CG iterations; then, for information, the
+   Schur solve at the reference's resolution (12, 48, L=4);
+11. DFG 3D-1Z on the layered path: K1 against its plain version on every
+   V-cycle level of the pillar operator (165,600 dofs, n2d = 1,656,
+   Lp = 25; the check and yardsticks of phase 2 for the three type pairs
+   this solve launches), ``forms.soa.make_ugn_soa`` against the per-cell
+   kernel and ``jacfwd`` on 4,096 cells of this mesh (rel 1e-10), then
+   ``apps.dfg3d.solve_dfg3d_fine(0.5)`` with its defaults, uncut, against
+   the bars of tests/test_dfg.py: converged, Cd within 2% of 6.18533,
+   0.009401/3 < Cl < 3.5 * 0.009401, and K1 launched for each of its
+   type pairs; prints each rung's Newton steps, FGMRES iterations per
+   step, |F| and wall;
+12. prints one JSON line of kernel results (error: the largest over the
+   levels checked in phases 2 and 11; times, bound and library time:
+   level 0 of the channel with the mask fused, as the solve calls it, L2
+   flushed; ``ms_b2b`` back to back, ``ms_unmasked`` flushed without the
+   mask; ``launches``: on the pair's own path, ``path`` — phase 3 for
+   the main path's three pairs, phase 7 for f64 values with f32 x;
+   ``launches_tfqmr``: phase 7's for every pair; ``launches_dfg3d``:
+   phase 11's solve; ``ms_dfg3d``, ``bound_ms_dfg3d``: level 0 of the
+   pillar operator, masked, flushed), then the final JSON status line.
+   The trace, the block-CSR path and the host-LU path run no
    hand-written kernel, so they add no entry.
 
 Exits nonzero, with no result, without a CUDA card or without the
@@ -315,22 +342,21 @@ def k1_levels(torch, np, img, device):
     return levels
 
 
-def check_kernels(torch, np, img, device):
-    """Phase 2: K1 vs its plain version at the lc=0.04 shapes, on every
-    V-cycle level where the solve launches each type pair, unmasked and
-    with the BC mask fused in; and its yardsticks there: the time with L2
-    flushed and back to back, the bound, and a library call's time."""
+def check_levels(torch, np, levels, pairs, device):
+    """K1 vs its plain version on every V-cycle level in ``levels`` where
+    the solve launches each type pair of ``pairs``, unmasked and with the
+    BC mask fused in; and its yardsticks there: the time with L2 flushed
+    and back to back, the bound, and a library call's time."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv)
 
-    levels = k1_levels(torch, np, img, device)
     flush = L2Flush(torch, device)
     rng = np.random.default_rng(0)
     xs = [torch.as_tensor(rng.standard_normal(op.mask.numel()),
                           device=device) for op in levels]
     on_levels = solve_levels(len(levels))
     results = []
-    for vname, xname, tol, path in PAIRS:
+    for vname, xname, tol, path in pairs:
         vdt, xdt = getattr(torch, vname), getattr(torch, xname)
         errs, row = [], {}
         for k in on_levels[(vname, xname)]:
@@ -654,7 +680,7 @@ def _rel(np, a, b) -> float:
 def _bar(ok: bool, what: str) -> None:
     print(f"  {what}: {'ok' if ok else 'MISSED'}", flush=True)
     if not ok:
-        raise RuntimeError(f"block-CSR path: {what}")
+        raise RuntimeError(f"bar missed: {what}")
 
 
 def run_bcsr_cases(torch, np, img, device):
@@ -794,6 +820,169 @@ def bcsr_spmv_yardstick(torch, np, W, device):
     del flush
 
 
+def run_dfg2d(torch, np, device):
+    """Phase 9: DFG 2D-1 at the scale tests/test_dfg.py holds to the
+    literature values."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import dfg2d
+
+    t0 = time.perf_counter()
+    r = dfg2d.solve_dfg2d(0.35, device=device)
+    wall = time.perf_counter() - t0
+    print(f"DFG 2D-1 scale 0.35: {wall:.2f} s wall, {r.mesh.n_nodes} nodes, "
+          f"{3 * r.mesh.n_nodes} dofs, Newton steps per rung {r.rung_iters}; "
+          f"Cd {r.cd:.6f} ({r.cd_err_pct:+.3f}%), Cl {r.cl:.7f} "
+          f"({r.cl_err_pct:+.3f}%); surface Cd {r.cd_surface:.6f}, Cl "
+          f"{r.cl_surface:.7f}; wall split "
+          f"{json.dumps({k: round(v, 3) for k, v in r.timings.items()})}",
+          flush=True)
+    cd_ref, cl_ref = dfg2d.CD_REF, dfg2d.CL_REF
+    _bar(r.converged and np.isfinite(r.u).all() and np.isfinite(r.p).all(),
+         "DFG 2D converged")
+    _bar(abs(r.cd - cd_ref) / cd_ref < 0.01, "Cd within 1% of 5.57953523384")
+    _bar(abs(r.cl - cl_ref) / cl_ref < 0.03, "Cl within 3% of 0.010618948146")
+    _bar(abs(r.cd_surface - cd_ref) / cd_ref < 0.03
+         and abs(r.cl_surface - cl_ref) / cl_ref < 0.03,
+         "surface-integral Cd and Cl within 3%")
+
+
+def run_taylor_hood(torch, np, device):
+    """Phase 10: the Taylor-Hood duct, Schur solve on the card against
+    the host LU."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps.duct_stokes_th import (
+        solve_duct_th)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.exact import (
+        square_duct_mean, square_duct_profile)
+
+    def rel_err(r):
+        uex = square_duct_profile(r.u_coords[:, 1], r.u_coords[:, 2]) \
+            / square_duct_mean()
+        return float(np.sqrt(np.mean((r.u[:, 0] - uex) ** 2))
+                     / np.sqrt(np.mean(uex ** 2)))
+
+    t0 = time.perf_counter()
+    rs = solve_duct_th(6, 12, inlet="poiseuille", device=device)
+    torch.cuda.synchronize()
+    t_schur = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rl = solve_duct_th(6, 12, inlet="poiseuille", method="lu", device=device)
+    t_lu = time.perf_counter() - t0
+    # null pivots (rim pressure dofs with every coupled velocity dof
+    # constrained): the LU pins them to 0, the Schur solve leaves them
+    # undetermined
+    live = rl.p != 0.0
+    es, el = rel_err(rs), rel_err(rl)
+    du, dp = _rel(np, rs.u, rl.u), _rel(np, rs.p[live], rl.p[live])
+    print(f"Taylor-Hood duct (6, 12): {rs.space.ndofs} dofs; Schur "
+          f"{t_schur:.2f} s, outer FGMRES its {rs.outer_iters}, inner CG its "
+          f"{rs.inner_iters}, rel-L2 vs the developed profile {es:.4f}; LU "
+          f"{t_lu:.2f} s, {el:.4f}; Schur vs LU rel-L2 u {du:.3e}, p "
+          f"{dp:.3e} on {int(live.sum())} of {len(live)} pressure dofs",
+          flush=True)
+    _bar(np.isfinite(rs.u).all() and es < 0.06 and el < 0.06,
+         "both methods within 0.06 of the developed profile")
+    _bar(du < 1e-6 and dp < 1e-6, "Schur and LU within rel-L2 1e-6")
+
+    t0 = time.perf_counter()
+    r = solve_duct_th(12, 48, length=4.0, inlet="poiseuille", device=device)
+    torch.cuda.synchronize()
+    print(f"Taylor-Hood duct (12, 48, L=4), for information: "
+          f"{r.space.ndofs} dofs, Schur {time.perf_counter() - t0:.2f} s, "
+          f"outer {r.outer_iters}, inner {r.inner_iters}, rel-L2 vs the "
+          f"developed profile {rel_err(r):.4f}", flush=True)
+
+
+DFG3D_PAIRS = tuple(p for p in PAIRS if p[3] == "main")
+
+
+def check_ugn_soa(torch, np, mesh, device, n_cells: int = 4096):
+    """``make_ugn_soa`` on the card against the per-cell UGN kernel and
+    ``jacfwd`` of it, on the first cells of ``mesh`` with a seeded state
+    (one cell in four at rest)."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
+        make_ns_ugn_kernel)
+
+    kern = make_ns_ugn_kernel("tetrahedron", 1e-3)
+    coords = torch.as_tensor(mesh.points[mesh.cells[:n_cells]], device=device)
+    w = np.random.default_rng(5).standard_normal((n_cells, 16)) * 0.3
+    w.reshape(n_cells, 4, 4)[::4, :, :3] = 0.0
+    w = torch.as_tensor(w, device=device)
+    coordsT = coords.permute(1, 2, 0).reshape(12, n_cells).contiguous()
+    r = kern.res_soa(coordsT, w.T.contiguous()).T
+    J = kern.jac_soa(coordsT, w.T.contiguous()).permute(2, 0, 1)
+    r_ref = torch.func.vmap(kern)(coords, w)
+    J_ref = torch.func.vmap(
+        lambda c, we: torch.func.jacfwd(lambda ww: kern(c, ww))(we))(coords, w)
+    torch.cuda.synchronize()
+    er = float(torch.linalg.vector_norm(r - r_ref)
+               / torch.linalg.vector_norm(r_ref))
+    eJ = float(torch.linalg.vector_norm(J - J_ref)
+               / torch.linalg.vector_norm(J_ref))
+    print(f"UGN SoA on {n_cells} pillar cells: res_soa rel {er:.3e}, "
+          f"jac_soa vs jacfwd rel {eJ:.3e} (bar 1e-10)", flush=True)
+    _bar(bool(torch.isfinite(J).all()) and er < 1e-10 and eJ < 1e-10,
+         "make_ugn_soa equals the per-cell kernel and its jacfwd")
+
+
+def run_dfg3d(torch, np, device):
+    """Phase 11: K1 on the pillar operator's levels, then DFG 3D-1Z on the
+    layered path, uncut.  Returns (kernel checks, K1 launches by pair)."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import dfg3d
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
+        matrix_values_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
+        make_ns_sups_kernel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
+        galerkin_levels)
+
+    t0 = time.perf_counter()
+    mesh, _W, lp, mask, g, hier, _obst = dfg3d._fine_setup(
+        0.5, 1.0, 0.15, 3, device)
+    a = lp.arrays
+    kern = make_ns_sups_kernel("tetrahedron", nu=dfg3d.NU,
+                               transposed_stab=False)
+    vals = matrix_values_layered(kern, lp.E, lp.n_planes, lp.bs, a, g)
+    levels = galerkin_levels(hier, vals, a.cols, a.row_ids, a.row_ptr,
+                             a.diag_pos, mask, lp.n2d, lp.n_planes)
+    torch.cuda.synchronize()
+    print(f"K1 shapes on the pillar: dofs {lp.ndofs}; (E, Lp, n2d) per "
+          f"V-cycle level "
+          f"{[(op.values.shape[3], op.n_planes, op.n2d) for op in levels]}; "
+          f"set-up {time.perf_counter() - t0:.2f} s", flush=True)
+    checks = check_levels(torch, np, levels, DFG3D_PAIRS, device)
+    del levels, vals
+    check_ugn_soa(torch, np, mesh, device)
+
+    layered_spmv.reset_launches()
+    t0 = time.perf_counter()
+    r = dfg3d.solve_dfg3d_fine(0.5, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(layered_spmv.LAUNCHES_BY_DTYPES)
+    by_pair = {f"{str(v).removeprefix('torch.')} values, "
+               f"{str(x).removeprefix('torch.')} x": n
+               for (v, x), n in launches.items()}
+    for nu, its, ksp, fnorm, t in r.rungs:
+        print(f"DFG 3D rung nu={nu:g}: Newton steps {its}, FGMRES its {ksp}, "
+              f"|F| {fnorm:.3e}, {t:.2f} s", flush=True)
+    print(f"DFG 3D-1Z scale 0.5: {wall:.2f} s wall, {r.mesh.n_nodes} nodes; "
+          f"Cd {r.cd:.5f} ({100 * (r.cd - 6.18533) / 6.18533:+.2f}%), Cl "
+          f"{r.cl:.6f}; surface Cd {r.cd_surface:.5f}, Cl "
+          f"{r.cl_surface:.6f}; K1 launches {layered_spmv.LAUNCHES} "
+          f"{by_pair}", flush=True)
+    _bar(r.converged and np.isfinite(r.u).all() and np.isfinite(r.p).all(),
+         "DFG 3D converged")
+    _bar(abs(r.cd - 6.18533) / 6.18533 < 0.02, "Cd within 2% of 6.18533")
+    _bar(0.009401 / 3 < r.cl < 3.5 * 0.009401,
+         "Cl in (0.003134, 0.032904)")
+    missing = [c["pair"] for c in checks if launches.get(
+        tuple(getattr(torch, n) for n in c["pair"]), 0) == 0]
+    _bar(not missing, f"the DFG 3D solve launched K1 for every pair "
+                      f"(missing {missing})")
+    return checks, launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -835,19 +1024,25 @@ def main() -> int:
     img = make_annulus_image(os.path.join(work, "circle.png"), "circle")
 
     try:
-        checks = check_kernels(torch, np, img, device)
+        checks = check_levels(torch, np, k1_levels(torch, np, img, device),
+                              PAIRS, device)
         launches, sol = run_main_path(torch, np, img, device)
         inlet1 = run_trace(torch, np, img, sol, device)
         check_trace_arithmetic(torch, np, sol, inlet1, device)
         run_warm_sweep(torch, np, img, sol, device)
         tfqmr_launches = run_tfqmr_main_path(torch, np, img, device)
         run_bcsr_cases(torch, np, img, device)
+        run_dfg2d(torch, np, device)
+        run_taylor_hood(torch, np, device)
+        dfg3d_checks, dfg3d_launches = run_dfg3d(torch, np, device)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
         traceback.print_exc()
         return fail(str(e))
-    by_path = {"main": launches, "tfqmr": tfqmr_launches}
+    by_path = {"main": launches, "tfqmr": tfqmr_launches,
+               "dfg3d": dfg3d_launches}
+    on_pillar = {c["pair"]: c for c in dfg3d_checks}
 
     def count(c, path):
         return by_path[path].get(tuple(getattr(torch, n) for n in c["pair"]),
@@ -869,10 +1064,16 @@ def main() -> int:
         replaces=TPU_KERNEL,
         launches=count(c, c["path"]), path=c["path"],
         launches_tfqmr=count(c, "tfqmr"),
-        max_abs_err=c["max_abs_err"], ms=c["ms"], ms_b2b=c["ms_b2b"],
+        launches_dfg3d=count(c, "dfg3d"),
+        max_abs_err=max(c["max_abs_err"], on_pillar.get(
+            c["pair"], c)["max_abs_err"]), ms=c["ms"], ms_b2b=c["ms_b2b"],
         ms_unmasked=c["ms_unmasked"], plain_ms=c["plain_ms"],
         bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-        library_ms=c["library_ms"], library=c["library"])
+        library_ms=c["library_ms"], library=c["library"],
+        ms_dfg3d=on_pillar[c["pair"]]["ms"] if c["pair"] in on_pillar
+        else None,
+        bound_ms_dfg3d=on_pillar[c["pair"]]["bound_ms"]
+        if c["pair"] in on_pillar else None)
         for c in checks]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -214,15 +214,15 @@ def _sups_fns(cell: str, transposed_stab: bool, qdeg: int):
 
 def make_ns_ugn_kernel(cell: str, nu, qdeg: int = 2) -> ElementKernel:
     """UGN/Tezduyar-tau stabilized NS kernel (lid-driven variant); nu is
-    a runtime parameter.
+    a runtime parameter.  On tetrahedra the cell-minor SoA variants
+    (``forms/soa.py::make_ugn_soa``) ride along for the structured
+    assembly."""
+    soa = None
+    if cell == "tetrahedron":
+        from .soa import make_ugn_soa
 
-    The JAX package attaches a cell-minor SoA variant on tetrahedra
-    (``forms/soa.py::make_ugn_soa``) for its structured assembly; the
-    port's UGN kernel has none yet (``soa=None``) and assembles through
-    the generic block-CSR path.  The SoA variant comes with the DFG 3D
-    slice, its first user.
-    """
-    return ElementKernel(*_ugn_fns(cell, qdeg), (nu,), soa=None)
+        soa = make_ugn_soa(cell, qdeg)
+    return ElementKernel(*_ugn_fns(cell, qdeg), (nu,), soa=soa)
 
 
 @functools.lru_cache(maxsize=None)

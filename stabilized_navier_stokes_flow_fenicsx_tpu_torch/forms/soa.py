@@ -1,8 +1,9 @@
 """Structure-of-arrays (SoA) SUPS/LSIC element kernels.
 
-Counterpart of the JAX package's ``forms/soa.py::make_sups_soa``: every
-quantity is laid out cell-MINOR — scalars are (C,) tensors, small tensors
-(k, C) stacks — so each elementwise op runs over the whole cell batch.
+Counterpart of the JAX package's ``forms/soa.py`` (``make_sups_soa``,
+``make_ugn_soa``): every quantity is laid out cell-MINOR — scalars are
+(C,) tensors, small tensors (k, C) stacks — so each elementwise op runs
+over the whole cell batch.
 
 Residual and Jacobian flow from ONE per-quadrature-point flux function.
 With the per-qp state
@@ -108,6 +109,45 @@ def _sups_flux(nu, C_I, G, trG, GdG, transposed_stab):
     return f
 
 
+def _ugn_flux(nu, h, u_eps, dtype):
+    """Pointwise UGN/Tezduyar flux (lid-driven variant,
+    forms/navier_stokes.py::make_ns_ugn_kernel): tau_SUPG from
+    (tau_1, tau_3), tau_LSIC = (h/2)|u| z(Re_UGN).  h = cell diameter
+    (a per-cell (C,) constant).  ``tiny`` keeps sqrt differentiable at
+    u = 0, where the guard zeroes the tau_1 term."""
+    tiny = torch.finfo(dtype).tiny
+
+    def f(*s):
+        u = s[0:3]
+        Gu = [[s[3 + 3 * i + j] for j in range(3)] for i in range(3)]
+        p = s[12]
+        gp = s[13:16]
+        adv = [sum(Gu[i][j] * u[j] for j in range(3)) for i in range(3)]
+        res = [adv[j] + gp[j] for j in range(3)]
+        u_sq = u[0] * u[0] + u[1] * u[1] + u[2] * u[2]
+        u_norm = torch.sqrt(u_sq + tiny)
+        inv_tau1_sq = torch.where(u_norm <= u_eps, 0.0,
+                                  4.0 * u_sq / (h * h))
+        tau3 = h * h / (4.0 * nu)
+        tau_s = torch.rsqrt(inv_tau1_sq + 1.0 / (tau3 * tau3))
+        re_ugn = u_norm * h / (2.0 * nu)
+        z = torch.minimum(re_ugn / 3.0, torch.ones_like(re_ugn))
+        tau_l = 0.5 * h * u_norm * z
+        div = Gu[0][0] + Gu[1][1] + Gu[2][2]
+        f_u = adv
+        f_G = [[nu * Gu[i][j] + tau_s * res[i] * u[j]
+                for j in range(3)] for i in range(3)]
+        lsic = tau_l * div - p
+        for i in range(3):
+            f_G[i][i] = f_G[i][i] + lsic
+        f_p = div
+        f_gp = [tau_s * res[j] for j in range(3)]
+        return tuple(f_u) + tuple(f_G[i][j] for i in range(3)
+                                  for j in range(3)) + (f_p,) + tuple(f_gp)
+
+    return f
+
+
 def _states(phi_np, g, wT, dtype, nq):
     """Per-cell constant gradient states + per-qp value states.
 
@@ -173,15 +213,9 @@ def _jac_q_accum(J, flux, s, phi_q, g, w):
     return J + torch.stack(rows, dim=0)
 
 
-@functools.lru_cache(maxsize=None)
-def make_sups_soa(cell: str, transposed_stab: bool, qdeg: int):
-    """(res_soa, jac_soa) for the G-metric SUPS/LSIC kernel.
-
-    Signatures (C = cell batch, minor axis):
-      res_soa(params, coordsT (12, C), wT (16, C)) -> (16, C)
-      jac_soa(params, coordsT (12, C), wT (16, C)) -> (16, 16, C)
-    with row/col index a*bs + component, matching the per-cell kernels.
-    """
+def _p1_tables(cell: str, qdeg: int):
+    """(phi (nq, 4), the constant dphi (4, 3), weights (nq,)) of P1 on
+    the tetrahedron."""
     if cell != "tetrahedron":
         raise ValueError("SoA kernels are 3D (tetrahedron) only")
     elem = element(cell, 1)
@@ -189,21 +223,18 @@ def make_sups_soa(cell: str, transposed_stab: bool, qdeg: int):
     phi_np, dphi_np = elem.tabulate(qr.points)
     if not np.allclose(dphi_np, dphi_np[0]):
         raise ValueError("P1 gradients must be constant")
-    dphi0 = dphi_np[0]
+    return phi_np, dphi_np[0], qr.weights
+
+
+def _soa_pair(phi_np, wq_np, setup):
+    """(res_soa, jac_soa) around ``setup(params, coordsT, wT) -> (flux,
+    g, detJ)``: the quadrature loops of r_e and J_e shared by every
+    flux."""
     nq = phi_np.shape[0]
-    wq_np = qr.weights
 
     def _common(params, coordsT, wT):
-        dtype = wT.dtype
-        nu, C_I = param_tensors(params, wT)
-        invJ, detJ = _geometry_soa(coordsT, dtype)
-        g = _basis_grads(dphi0, invJ)
-        G = [[sum(invJ[k][i] * invJ[k][j] for k in range(3))
-              for j in range(3)] for i in range(3)]
-        trG = G[0][0] + G[1][1] + G[2][2]
-        GdG = sum(G[i][j] * G[i][j] for i in range(3) for j in range(3))
-        flux = _sups_flux(nu, C_I, G, trG, GdG, transposed_stab)
-        Gu, gp, u_q, p_q = _states(phi_np, g, wT, dtype, nq)
+        flux, g, detJ = setup(params, coordsT, wT)
+        Gu, gp, u_q, p_q = _states(phi_np, g, wT, wT.dtype, nq)
         gflat = tuple(Gu[i][j] for i in range(3) for j in range(3))
         states = [tuple(u_q[q]) + gflat + (p_q[q],) + tuple(gp)
                   for q in range(nq)]
@@ -231,3 +262,56 @@ def make_sups_soa(cell: str, transposed_stab: bool, qdeg: int):
         return J * detJ[None, None, :]
 
     return res_soa, jac_soa
+
+
+@functools.lru_cache(maxsize=None)
+def make_sups_soa(cell: str, transposed_stab: bool, qdeg: int):
+    """(res_soa, jac_soa) for the G-metric SUPS/LSIC kernel.
+
+    Signatures (C = cell batch, minor axis):
+      res_soa(params, coordsT (12, C), wT (16, C)) -> (16, C)
+      jac_soa(params, coordsT (12, C), wT (16, C)) -> (16, 16, C)
+    with row/col index a*bs + component, matching the per-cell kernels.
+    """
+    phi_np, dphi0, wq_np = _p1_tables(cell, qdeg)
+
+    def setup(params, coordsT, wT):
+        nu, C_I = param_tensors(params, wT)
+        invJ, detJ = _geometry_soa(coordsT, wT.dtype)
+        g = _basis_grads(dphi0, invJ)
+        G = [[sum(invJ[k][i] * invJ[k][j] for k in range(3))
+              for j in range(3)] for i in range(3)]
+        trG = G[0][0] + G[1][1] + G[2][2]
+        GdG = sum(G[i][j] * G[i][j] for i in range(3) for j in range(3))
+        return _sups_flux(nu, C_I, G, trG, GdG, transposed_stab), g, detJ
+
+    return _soa_pair(phi_np, wq_np, setup)
+
+
+def _diameter_soa(coordsT, dtype):
+    """Cell diameter (longest edge) on (12, C) transposed coordinates."""
+    x = [[coordsT[a * 3 + i].to(dtype) for i in range(3)]
+         for a in range(4)]
+    h2 = None
+    for a in range(4):
+        for b in range(a + 1, 4):
+            d = sum((x[a][i] - x[b][i]) ** 2 for i in range(3))
+            h2 = d if h2 is None else torch.maximum(h2, d)
+    return torch.sqrt(h2)
+
+
+@functools.lru_cache(maxsize=None)
+def make_ugn_soa(cell: str, qdeg: int):
+    """(res_soa, jac_soa) for the UGN/Tezduyar-tau kernel — same
+    contract as make_sups_soa; h = cell diameter enters the flux as a
+    per-cell constant."""
+    phi_np, dphi0, wq_np = _p1_tables(cell, qdeg)
+
+    def setup(params, coordsT, wT):
+        (nu,) = param_tensors(params, wT)
+        invJ, detJ = _geometry_soa(coordsT, wT.dtype)
+        g = _basis_grads(dphi0, invJ)
+        h = _diameter_soa(coordsT, wT.dtype)
+        return _ugn_flux(nu, h, 1e-8, wT.dtype), g, detJ
+
+    return _soa_pair(phi_np, wq_np, setup)

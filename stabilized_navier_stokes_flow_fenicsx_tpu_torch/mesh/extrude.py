@@ -92,7 +92,9 @@ def extrude_tri_mesh(
 
     2D points (x, y) become (x, y, z); the gmsh ``Extrude{...; Layers{n}}``
     equivalent used by the DFG 3D pillar mesh (reference
-    Validation_Flow/dfg_pillar_3D.geo:96).
+    Validation_Flow/dfg_pillar_3D.geo:96).  Attaches ``mesh.layered`` and
+    ``mesh.extrusion`` as ``extrude_channel`` does without compaction, so
+    the layered solver path takes the mesh as it is.
     """
     pts2 = tri_mesh.points[:, :2]
     tris = tri_mesh.cells.astype(np.int64)
@@ -108,6 +110,11 @@ def extrude_tri_mesh(
         prisms.append(np.concatenate([bot, top], axis=1))
     tets = split_prisms(np.concatenate(prisms, axis=0))
     mesh = SimplexMesh("tetrahedron", points, tets.astype(np.int32))
+    # plane-major node ids and layer-major, tri-major, tet-minor cells:
+    # the layered operator's layout and the (layer, column) cell grid of
+    # the structured assembly (every prism kept)
+    mesh.layered = (np2, len(z_planes), np.ones(points.shape[0], bool))
+    mesh.extrusion = (tris.shape[0], nl, np.ones((nl, tris.shape[0]), bool))
     return mesh.orient_positive()
 
 

@@ -1,5 +1,5 @@
 """K1 on the card: the CUDA kernel against its plain version on every
-V-cycle level of the CHANNEL problem.
+V-cycle level of the CHANNEL problem and of the DFG 3D pillar problem.
 
 This file imports no JAX, so it runs where the card is:
 
@@ -12,7 +12,10 @@ mesh (lc=0.12), the Navier-Stokes Jacobian at a seeded state and the
 Galerkin values of each multigrid level (solve/mg.py::galerkin_levels),
 at the pair lists the solve hands K1.  Each case runs the prepared
 operand (assemble/layered_spmv.py::LayeredOperand), unmasked and with
-the level's BC mask fused in.  Tolerances (relative L2):
+the level's BC mask fused in.  The pillar meshes (apps/dfg3d.py, scale
+2.0 and scale 1.0 with near_growth 0.15) bring a cross-section with a
+hole and few planes: Lp = 7 and 13 on the fine level, 4 and 7 below.
+Tolerances (relative L2):
 
 * f64 values, f64 x: 1e-12 — only the summation order differs;
 * bf16 values, f32 or f64 x: 5e-3 — the plain version rounds each
@@ -40,6 +43,13 @@ from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
     make_annulus_image)
 
 from parity_fixtures import CHANNEL
+
+PAIR_TOLS = [
+    (torch.float64, torch.float64, 1e-12),
+    (torch.bfloat16, torch.float32, 5e-3),
+    (torch.bfloat16, torch.float64, 5e-3),
+    (torch.float64, torch.float32, 1e-5),
+]
 
 
 @pytest.fixture(scope="module")
@@ -70,14 +80,13 @@ def _rel_l2(a, b) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
-@pytest.mark.parametrize("vdtype, xdtype, tol", [
-    (torch.float64, torch.float64, 1e-12),
-    (torch.bfloat16, torch.float32, 5e-3),
-    (torch.bfloat16, torch.float64, 5e-3),
-    (torch.float64, torch.float32, 1e-5),
-])
+@pytest.mark.parametrize("vdtype, xdtype, tol", PAIR_TOLS)
 def test_kernel_matches_plain_on_card(levels, vdtype, xdtype, tol, masked):
     assert len(levels) >= 2       # the fine level and at least one RAP
+    _check_levels(levels, vdtype, xdtype, tol, masked)
+
+
+def _check_levels(levels, vdtype, xdtype, tol, masked):
     rng = np.random.default_rng(5)
     for k, op in enumerate(levels):
         K = layered_spmv.LayeredOperand(
@@ -96,6 +105,36 @@ def test_kernel_matches_plain_on_card(levels, vdtype, xdtype, tol, masked):
         if masked:                # the constrained rows are x itself
             fixed = K.masks[xdtype] == 0
             assert torch.equal(y[fixed], x[fixed]), f"level {k}"
+
+
+@pytest.fixture(scope="module", params=[(2.0, 0.3), (1.0, 0.15)],
+                ids=["scale2.0", "scale1.0_growth0.15"])
+def pillar_levels(request):
+    """Every V-cycle level of a DFG 3D pillar operator on the card, and
+    its planes per level."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel; no CPU mode)")
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import dfg3d
+
+    scale, growth = request.param
+    _mesh, _W, lp, mask, g, hier, _obst = dfg3d._fine_setup(
+        scale, 1.0, growth, 3, torch.device("cuda"))
+    a = lp.arrays
+    kern = make_ns_sups_kernel("tetrahedron", nu=dfg3d.NU,
+                               transposed_stab=False)
+    vals = matrix_values_layered(kern, lp.E, lp.n_planes, lp.bs, a, g)
+    return galerkin_levels(hier, vals, a.cols, a.row_ids, a.row_ptr,
+                           a.diag_pos, mask, lp.n2d, lp.n_planes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("vdtype, xdtype, tol", PAIR_TOLS)
+def test_kernel_matches_plain_on_pillar_levels(pillar_levels, vdtype, xdtype,
+                                               tol, masked):
+    planes = [op.n_planes for op in pillar_levels]
+    assert len(planes) >= 2 and planes[0] in (7, 13) and planes[-1] == 4
+    _check_levels(pillar_levels, vdtype, xdtype, tol, masked)
 
 
 @pytest.mark.cuda
