@@ -74,7 +74,8 @@
    other in velocity and in pressure on the dofs the LU does not pin as
    null pivots (there the Schur solve is undetermined); prints the outer
    FGMRES and total inner CG iterations; then, for information, the
-   Schur solve at the reference's resolution (12, 48, L=4);
+   Schur solve at the reference's cross-section and half its length
+   (12, 24, L=2);
 11. DFG 3D-1Z on the layered path: K1 against its plain version on every
    V-cycle level of the pillar operator (165,600 dofs, n2d = 1,656,
    Lp = 25; the check and yardsticks of phase 2 for the three type pairs
@@ -85,15 +86,47 @@
    0.009401/3 < Cl < 3.5 * 0.009401, and K1 launched for each of its
    type pairs; prints each rung's Newton steps, FGMRES iterations per
    step, |F| and wall;
-12. prints one JSON line of kernel results (error: the largest over the
-   levels checked in phases 2 and 11; times, bound and library time:
+12. runs the route the apps take (``apps/inlet_batch.py``, ``apps/
+   sweep.py``): ``solve_ns_flow(10, circle, 0.5, 0.04)`` with the default
+   ``coarse_lc=0.1``, so the solve runs coarse (16,740 dofs), interpolates
+   onto the fine mesh and runs the fine Newton there: converged, at least
+   one fine Newton step, rel-L2 < 1e-6 against channel_ns_prod.npz;
+   prints the ``interpolate``, ``fine_setup`` and ``fine_ns`` timings and
+   the FGMRES counts;
+13. runs the Reynolds ladder (above Re 50 the coarse Newton climbs a
+   geometric Re ladder): Re=60 cold, Re=70 warm from it, Re=70 cold, all
+   at lc=0.04 through the coarse-to-fine route: all converged, warm and
+   cold Re=70 within rel-L2 1e-6 of each other; prints Newton steps and
+   FGMRES counts per rung;
+14. runs the multi-device layer on the card: a real process group of
+   world size 1 (nccl, file rendezvous under build/chip_smoke/), one
+   all-reduce on it; K1 against its plain version at the slab's shapes
+   (the slab operand with its two zero halo planes and the halo-extended
+   mask, f64 values with f64 and f32 x; and ``SlabOperand`` as a whole
+   against the plain version without halo planes); then
+   ``parallel.layered_shard.
+   sharded_newton_layered`` on the lc=0.04 channel with ``pc="mg"``
+   (slab assembly from the cell tables, K1 on the slab with its halo
+   planes, the V-cycle with level 0 sharded) against
+   ``solve_newton_layered`` with ``mg_cheby`` on the same problem from
+   the same start (the stored solution halved, BC values re-imposed):
+   both converged, rel-L2 < 1e-8 of each other, the same Newton step
+   count, FGMRES counts within 1 per step, K1 launched by the sharded
+   solve; and ``__graft_entry_torch__.entry()`` on the card against the
+   same function on CPU tensors (rel 1e-10).  The multi-rank arithmetic
+   is held on the CPU (tests/test_torch_layered_shard.py,
+   tests/test_torch_sharding.py); one card proves the path runs there;
+15. prints one JSON line of kernel results (error: the largest over the
+   levels checked in phases 2, 11 and 14; times, bound and library time:
    level 0 of the channel with the mask fused, as the solve calls it, L2
    flushed; ``ms_b2b`` back to back, ``ms_unmasked`` flushed without the
    mask; ``launches``: on the pair's own path, ``path`` — phase 3 for
    the main path's three pairs, phase 7 for f64 values with f32 x;
    ``launches_tfqmr``: phase 7's for every pair; ``launches_dfg3d``:
-   phase 11's solve; ``ms_dfg3d``, ``bound_ms_dfg3d``: level 0 of the
-   pillar operator, masked, flushed), then the final JSON status line.
+   phase 11's solve; ``launches_sharded``: phase 14's sharded solve;
+   ``ms_dfg3d``, ``bound_ms_dfg3d``: level 0 of the pillar operator,
+   masked, flushed; ``ms_slab``, ``bound_ms_slab``: the slab operand of
+   phase 14, likewise), then the final JSON status line.
    The trace, the block-CSR path and the host-LU path run no
    hand-written kernel, so they add no entry.
 
@@ -118,6 +151,7 @@ FIXTURE = os.path.join(FIXTURES, "channel_ns_prod.npz")
 TRACE_FIXTURE = os.path.join(FIXTURES, "trace_prod.npz")
 BCSR_FIXTURES = tuple(os.path.join(FIXTURES, f"{name}.npz") for name in
                       ("cavity_ns", "duct_ns", "stokes_channel"))
+GRAFT_ENTRY = os.path.join(ROOT, "__graft_entry_torch__.py")
 RE, RATIO, LC = 10.0, 0.5, 0.04
 RE_WARM = 20.0
 NUM_SEEDS = 200            # reverse grid per side (InletBatchScript.py:41)
@@ -342,11 +376,12 @@ def k1_levels(torch, np, img, device):
     return levels
 
 
-def check_levels(torch, np, levels, pairs, device):
+def check_levels(torch, np, levels, pairs, device, on_levels=None):
     """K1 vs its plain version on every V-cycle level in ``levels`` where
-    the solve launches each type pair of ``pairs``, unmasked and with the
-    BC mask fused in; and its yardsticks there: the time with L2 flushed
-    and back to back, the bound, and a library call's time."""
+    the solve launches each type pair of ``pairs`` (``on_levels``: the
+    levels by pair; those of ``solve_levels`` when None), unmasked and
+    with the BC mask fused in; and its yardsticks there: the time with L2
+    flushed and back to back, the bound, and a library call's time."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv)
 
@@ -354,7 +389,8 @@ def check_levels(torch, np, levels, pairs, device):
     rng = np.random.default_rng(0)
     xs = [torch.as_tensor(rng.standard_normal(op.mask.numel()),
                           device=device) for op in levels]
-    on_levels = solve_levels(len(levels))
+    if on_levels is None:
+        on_levels = solve_levels(len(levels))
     results = []
     for vname, xname, tol, path in pairs:
         vdt, xdt = getattr(torch, vname), getattr(torch, xname)
@@ -883,9 +919,9 @@ def run_taylor_hood(torch, np, device):
     _bar(du < 1e-6 and dp < 1e-6, "Schur and LU within rel-L2 1e-6")
 
     t0 = time.perf_counter()
-    r = solve_duct_th(12, 48, length=4.0, inlet="poiseuille", device=device)
+    r = solve_duct_th(12, 24, length=2.0, inlet="poiseuille", device=device)
     torch.cuda.synchronize()
-    print(f"Taylor-Hood duct (12, 48, L=4), for information: "
+    print(f"Taylor-Hood duct (12, 24, L=2), for information: "
           f"{r.space.ndofs} dofs, Schur {time.perf_counter() - t0:.2f} s, "
           f"outer {r.outer_iters}, inner {r.inner_iters}, rel-L2 vs the "
           f"developed profile {rel_err(r):.4f}", flush=True)
@@ -983,6 +1019,277 @@ def run_dfg3d(torch, np, device):
     return checks, launches
 
 
+def _print_solution(sol, what: str, wall: float) -> None:
+    print(f"{what}: {wall:.2f} s wall, timings "
+          f"{json.dumps({k: round(v, 4) for k, v in sol.timings.items()})}",
+          flush=True)
+    for name, h in sol.newton_history.items():
+        print(f"{what} {name}: Newton steps {len(h)}, FGMRES its "
+              f"{[int(r[2]) for r in h]}, lambda {[float(r[1]) for r in h]}, "
+              f"|F| {[float('%.3e' % r[0]) for r in h]}", flush=True)
+
+
+def run_apps_route(torch, np, img, device):
+    """Phase 12: the coarse-to-fine route the apps take (the default
+    ``coarse_lc=0.1``)."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
+        solve_ns_flow)
+
+    layered_spmv.reset_launches()
+    t0 = time.perf_counter()
+    sol = solve_ns_flow(RE, img, RATIO, LC, device=device)
+    torch.cuda.synchronize()
+    _print_solution(sol, "apps' route (coarse_lc=0.1 -> lc=0.04)",
+                    time.perf_counter() - t0)
+    fine = sol.newton_history["fine_ns"]
+    t = sol.timings
+    w_ref = np.load(FIXTURE)["w"]
+    rel = _rel(np, sol.w, w_ref) if sol.w.shape == w_ref.shape else np.inf
+    print(f"apps' route: interpolate {t.get('interpolate', -1):.3f} s, "
+          f"fine_setup {t.get('fine_setup', -1):.3f} s, fine_ns "
+          f"{t['fine_ns']:.3f} s; fine Newton steps {len(fine)}, FGMRES its "
+          f"{[int(r[2]) for r in fine]}; Stokes FGMRES its {sol.stokes_iters}; "
+          f"K1 launches {layered_spmv.LAUNCHES}; rel-L2 vs "
+          f"channel_ns_prod.npz {rel:.3e}", flush=True)
+    _bar("interpolate" in t and "fine_setup" in t,
+         "the solve ran the coarse-to-fine branch")
+    _bar(sol.converged and np.isfinite(sol.w).all(), "apps' route converged")
+    _bar(len(fine) >= 1, "at least one fine Newton step")
+    _bar(rel < 1e-6, "apps' route rel-L2 < 1e-6 of channel_ns_prod.npz")
+    _bar(layered_spmv.LAUNCHES > 0, "the apps' route launched K1")
+
+
+RE_LADDER, RE_LADDER_WARM = 60.0, 70.0
+
+
+def run_reynolds_ladder(torch, np, img, device):
+    """Phase 13: the coarse mesh's Reynolds ladder (above Re 50), and the
+    warm path against the cold one above it."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
+        solve_ns_flow)
+
+    sols = {}
+    for what, re, warm in (("Re=60 cold", RE_LADDER, None),
+                           ("Re=70 warm", RE_LADDER_WARM, "Re=60 cold"),
+                           ("Re=70 cold", RE_LADDER_WARM, None)):
+        t0 = time.perf_counter()
+        sol = solve_ns_flow(re, img, RATIO, LC, device=device,
+                            warm=sols.get(warm))
+        torch.cuda.synchronize()
+        _print_solution(sol, what, time.perf_counter() - t0)
+        rungs = [k for k in sol.newton_history if k.startswith("coarse_ns")]
+        print(f"{what}: ladder rungs {rungs}, fine Newton steps "
+              f"{sol.newton_iters}, |F| {sol.newton_resnorm:.3e}, converged "
+              f"{sol.converged}", flush=True)
+        _bar(sol.converged and np.isfinite(sol.w).all(), f"{what} converged")
+        if warm is None:
+            _bar(len(rungs) > 1, f"{what} climbed a ladder ({len(rungs)} "
+                                 f"rungs)")
+        else:
+            _bar(not rungs, f"{what} ran no coarse phase")
+        sols[what] = sol
+    rel = _rel(np, sols["Re=70 warm"].w, sols["Re=70 cold"].w)
+    print(f"Re=70 warm vs cold: rel-L2 {rel:.3e} (bar 1e-6)", flush=True)
+    _bar(rel < 1e-6, "warm and cold Re=70 within rel-L2 1e-6")
+
+
+SHARD_TOLS = dict(rtol=1e-10, atol=1e-10, max_it=30, ksp_rtol=1e-10)
+# the sharded solve's V-cycle keeps f64 values: the outer operator and the
+# V-cycle's residuals read f64 x, its smoothers f32 x
+SHARD_PAIRS = tuple(p for p in PAIRS if p[0] == "float64")
+
+
+def check_slab_operand(torch, np, kern, lp, mask_p, g_p, w0_np, device):
+    """K1 at the shapes the sharded solve gives it, against its plain
+    version.  The slab's operand (``SlabOperand.inner``) has the slab's
+    planes plus two halo planes with zero value rows and the halo-extended
+    mask; it goes through ``check_levels`` for both of the solve's type
+    pairs.  Then the whole wrapper (halo fetch, K1, interior kept) is held
+    against the plain version of the operand without halo planes.  The
+    values are the slab assembly's at the solve's start.  Call it inside
+    the process group.  Returns the checks."""
+    import types
+
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.parallel.layered_shard import (
+        SlabOperand, _halo_values, halo_extend, make_slab_assembly,
+        shard_layered_inputs)
+
+    arrays, slab, meta, (mask_s, _g_s, w0_s) = shard_layered_inputs(
+        lp, mask_p, g_p, w0_np, None, device)
+    n2d, bs, Lq = lp.n2d, lp.bs, meta["Lq"]
+    _, values_fn = make_slab_assembly(kern, n2d, Lq, bs, lp.E)
+    values = values_fn(slab, w0_s)
+    mask_ext = halo_extend(mask_s, n2d * bs)
+    inner = SlabOperand(values, arrays.cols, arrays.row_ptr, n2d,
+                        mask_ext).inner
+    level = types.SimpleNamespace(
+        values=_halo_values(values), cols=arrays.cols, row_ids=arrays.row_ids,
+        row_ptr=arrays.row_ptr, mask=mask_ext, n2d=n2d, n_planes=Lq + 2)
+    print(f"K1 shapes on the slab: (E, planes, n2d) "
+          f"{(lp.E, Lq + 2, n2d)}, {Lq} planes of values and two zero halo "
+          f"planes", flush=True)
+    _bar(inner.Lp == Lq + 2 and inner.masked
+         and not bool(level.values[..., 0].any())
+         and not bool(level.values[..., -1].any()),
+         "the slab operand has the slab's planes and two zero halo planes")
+    checks = check_levels(
+        torch, np, [level], SHARD_PAIRS, device,
+        on_levels={(v, x): range(1) for v, x, _, _ in SHARD_PAIRS})
+
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        mask_s.numel()), device=device)
+    for vname, xname, tol, _ in SHARD_PAIRS:
+        vdt, xdt = getattr(torch, vname), getattr(torch, xname)
+        A = SlabOperand(values, arrays.cols, arrays.row_ptr, n2d, mask_ext,
+                        None, vdt)
+        whole = layered_spmv.LayeredOperand(
+            values, arrays.cols, arrays.row_ptr, n2d, mask=mask_s, dtype=vdt)
+        layered_spmv.reset_launches()
+        y_k = A(x.to(xdt))
+        torch.cuda.synchronize()
+        launched = layered_spmv.LAUNCHES
+        y_p = layered_spmv.layered_matvec_plain(whole, x.to(xdt))
+        rel = float(torch.linalg.vector_norm(y_k.double() - y_p.double())
+                    / torch.linalg.vector_norm(y_p.double()))
+        print(f"SlabOperand ({vname} values, {xname} x) vs the plain version "
+              f"without halo planes: rel-L2 {rel:.3e} (tol {tol:g}), K1 "
+              f"launches {launched}", flush=True)
+        _bar(launched == 1 and y_k.shape == y_p.shape
+             and bool(torch.isfinite(y_k).all()) and rel <= tol,
+             f"SlabOperand ({vname} values, {xname} x) launches K1 and "
+             f"equals the plain version")
+    return checks
+
+
+def run_sharded(torch, np, img, device):
+    """Phase 14: the multi-device layer on one card.  Returns (K1's checks
+    on the slab operand, the sharded solve's K1 launches by pair)."""
+    import torch.distributed as dist
+
+    import __graft_entry_torch__ as graft
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
+        build_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
+        _setup_layered, generate_channel_mesh)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
+        solve_inlet_profiles)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
+        make_ns_sups_kernel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.parallel import comm
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.parallel.layered_shard import (
+        gather_dofs, pad_mask_g, padded_planes, sharded_newton_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
+        solve_newton_layered)
+
+    # entry() on the card against the same function on CPU tensors
+    fn_c, args_c = graft.entry(device)
+    fn_h, args_h = graft.entry("cpu")
+    seeded = np.random.default_rng(7).standard_normal(args_h[0].shape) * 0.1
+    for what, w in (("example", args_h[0].numpy()), ("seeded", seeded)):
+        rn_c, z_c = fn_c(torch.as_tensor(w, device=device))
+        rn_h, z_h = fn_h(torch.as_tensor(w))
+        e_rn = abs(float(rn_c) - float(rn_h)) / float(rn_h)
+        e_z = _rel(np, z_c.cpu().numpy(), z_h.numpy())
+        print(f"entry() on the card vs the CPU, {what} state: |r| rel "
+              f"{e_rn:.3e}, z rel-L2 {e_z:.3e} (bar 1e-10)", flush=True)
+        _bar(z_c.is_cuda and e_rn < 1e-10 and e_z < 1e-10,
+             f"entry() on the card equals the CPU's ({what} state)")
+
+    # the same lc=0.04 problem for both solves, from the same start
+    t0 = time.perf_counter()
+    inlet1, inlet2 = solve_inlet_profiles(img, RATIO, DEFAULT)
+    mesh, _, _ = generate_channel_mesh(img, LC, DEFAULT)
+    st = _setup_layered(mesh, inlet1, inlet2, torch.float64,
+                        DEFAULT.solver.mg_levels, device)
+    lp1 = st.lp
+    kern = make_ns_sups_kernel("tetrahedron", nu=1.0 / RE,
+                               C_I=DEFAULT.stab.C_I)
+    mask_np, g_np = st.mask.cpu().numpy(), st.g.cpu().numpy()
+    w0_np = mask_np * (0.5 * np.load(FIXTURE)["w"]) + (1.0 - mask_np) * g_np
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ref = solve_newton_layered(
+        kern, lp1.n2d, lp1.n_planes, lp1.bs, lp1.arrays, st.mask, st.g,
+        torch.as_tensor(w0_np, device=device), lp1.E,
+        SHARD_TOLS["rtol"], SHARD_TOLS["atol"], SHARD_TOLS["max_it"],
+        SHARD_TOLS["ksp_rtol"], 50, 40, "mg_cheby", st.mg)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+
+    rendezvous = os.path.join(ROOT, "build", "chip_smoke",
+                              f"rendezvous_{os.getpid()}")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    comm.init_process_group(device, f"file://{rendezvous}", 1, 0)
+    try:
+        one = torch.ones(4, device=device)
+        dist.all_reduce(one)
+        torch.cuda.synchronize()
+        _bar(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+             and bool((one == 1.0).all()),
+             "a world-size-1 nccl group all-reduces on the card")
+        t0 = time.perf_counter()
+        W = st.space
+        n2d, Lp, _ = mesh.layered
+        lp = build_layered(W, n2d, padded_planes(Lp, 1), device="cpu")
+        mask_p, g_p = pad_mask_g(mask_np, g_np, lp.ndofs)
+        t_host = time.perf_counter() - t0
+        slab_checks = check_slab_operand(torch, np, kern, lp, mask_p, g_p,
+                                         w0_np, device)
+        layered_spmv.reset_launches()
+        t0 = time.perf_counter()
+        out = sharded_newton_layered(
+            kern, lp, mask_p, g_p, w0_np, device=device, pc="mg",
+            mg_levels=DEFAULT.solver.mg_levels, **SHARD_TOLS)
+        x = gather_dofs(out.x)
+        torch.cuda.synchronize()
+        t_shard = time.perf_counter() - t0
+        launches = dict(layered_spmv.LAUNCHES_BY_DTYPES)
+        total = layered_spmv.LAUNCHES
+    finally:
+        comm.destroy_process_group()
+        if os.path.exists(rendezvous):
+            os.remove(rendezvous)
+
+    rel = _rel(np, x.cpu().numpy(), ref.x.cpu().numpy())
+    its_ref = [int(r[2]) for r in ref.history]
+    its = [int(r[2]) for r in out.history]
+    by_pair = {f"{str(v).removeprefix('torch.')} values, "
+               f"{str(xd).removeprefix('torch.')} x": n
+               for (v, xd), n in launches.items()}
+    print(f"sharded layered Newton (world size 1, nccl) on {lp.ndofs} dofs: "
+          f"problem set-up {t_setup:.2f} s, host pattern {t_host:.2f} s, "
+          f"solve {t_shard:.2f} s, Newton steps {out.iters}, FGMRES its "
+          f"{its}, |F| {out.resnorm:.3e}; single process (structured "
+          f"assembly, mg_cheby): {t_ref:.2f} s, Newton steps {ref.iters}, "
+          f"FGMRES its {its_ref}, |F| {ref.resnorm:.3e}; rel-L2 between them "
+          f"{rel:.3e} (bar 1e-8); K1 launches in the sharded solve {total} "
+          f"{by_pair}", flush=True)
+    _bar(out.converged and ref.converged, "both solves converged")
+    _bar(x.is_cuda and out.x.numel() == lp.ndofs,
+         "the sharded solution is the one slab, on the card")
+    _bar(rel < 1e-8, "sharded and single-process within rel-L2 1e-8")
+    _bar(out.iters == ref.iters, "the same Newton step count")
+    _bar(len(its) == len(its_ref)
+         and all(abs(a - b) <= 1 for a, b in zip(its, its_ref)),
+         "FGMRES counts within 1 per step")
+    _bar(total > 0, "the sharded solve launched K1")
+    missing = [c["pair"] for c in slab_checks if launches.get(
+        tuple(getattr(torch, n) for n in c["pair"]), 0) == 0]
+    _bar(not missing, f"the sharded solve launched K1 for every pair checked "
+                      f"on the slab (missing {missing})")
+    return slab_checks, launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -993,9 +1300,10 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false: needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(f)
-            for f in (FIXTURE, TRACE_FIXTURE) + BCSR_FIXTURES):
-        return fail(f"run from a checkout of the repository ({PKG}/ and "
-                    f"tests/fixtures/ beside this script)")
+            for f in (FIXTURE, TRACE_FIXTURE, GRAFT_ENTRY) + BCSR_FIXTURES):
+        return fail(f"run from a checkout of the repository ({PKG}/, "
+                    f"__graft_entry_torch__.py and tests/fixtures/ beside "
+                    f"this script)")
     sys.path.insert(0, ROOT)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv)
@@ -1035,14 +1343,18 @@ def main() -> int:
         run_dfg2d(torch, np, device)
         run_taylor_hood(torch, np, device)
         dfg3d_checks, dfg3d_launches = run_dfg3d(torch, np, device)
+        run_apps_route(torch, np, img, device)
+        run_reynolds_ladder(torch, np, img, device)
+        slab_checks, sharded_launches = run_sharded(torch, np, img, device)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
         traceback.print_exc()
         return fail(str(e))
     by_path = {"main": launches, "tfqmr": tfqmr_launches,
-               "dfg3d": dfg3d_launches}
+               "dfg3d": dfg3d_launches, "sharded": sharded_launches}
     on_pillar = {c["pair"]: c for c in dfg3d_checks}
+    on_slab = {c["pair"]: c for c in slab_checks}
 
     def count(c, path):
         return by_path[path].get(tuple(getattr(torch, n) for n in c["pair"]),
@@ -1065,15 +1377,21 @@ def main() -> int:
         launches=count(c, c["path"]), path=c["path"],
         launches_tfqmr=count(c, "tfqmr"),
         launches_dfg3d=count(c, "dfg3d"),
-        max_abs_err=max(c["max_abs_err"], on_pillar.get(
-            c["pair"], c)["max_abs_err"]), ms=c["ms"], ms_b2b=c["ms_b2b"],
+        launches_sharded=count(c, "sharded"),
+        max_abs_err=max(c["max_abs_err"],
+                        on_pillar.get(c["pair"], c)["max_abs_err"],
+                        on_slab.get(c["pair"], c)["max_abs_err"]),
+        ms=c["ms"], ms_b2b=c["ms_b2b"],
         ms_unmasked=c["ms_unmasked"], plain_ms=c["plain_ms"],
         bound_ms=c["bound_ms"], bound_by=c["bound_by"],
         library_ms=c["library_ms"], library=c["library"],
         ms_dfg3d=on_pillar[c["pair"]]["ms"] if c["pair"] in on_pillar
         else None,
         bound_ms_dfg3d=on_pillar[c["pair"]]["bound_ms"]
-        if c["pair"] in on_pillar else None)
+        if c["pair"] in on_pillar else None,
+        ms_slab=on_slab[c["pair"]]["ms"] if c["pair"] in on_slab else None,
+        bound_ms_slab=on_slab[c["pair"]]["bound_ms"]
+        if c["pair"] in on_slab else None)
         for c in checks]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -45,10 +45,13 @@ class LayeredArrays:
     row_ids: torch.Tensor         # (E,) 2D row node (sorted)
     row_ptr: torch.Tensor         # (n2d + 1,) CSR pointer of row_ids
     diag_pos: torch.Tensor        # (n2d,) pair id of the (i, i) pair
-    sasm: StructuredAsm           # the structured assembly plan
+    # the structured assembly plan; None on a pattern without one (padded
+    # planes, a mesh without the extrusion grid): the plane-sharded path
+    # (parallel/layered_shard.py) assembles from the cell tables instead
+    sasm: Optional[StructuredAsm]
 
     @classmethod
-    def from_numpy(cls, fields: Mapping, sasm: StructuredAsm,
+    def from_numpy(cls, fields: Mapping, sasm: Optional[StructuredAsm],
                    device) -> "LayeredArrays":
         """Upload host fields (by name); ``row_ptr`` is derived from the
         sorted ``row_ids`` when absent."""
@@ -93,6 +96,13 @@ def build_layered(
     Node ids must be plane-major: node = l * n2d + i (the layout
     mesh/extrude.py emits before compaction).  Host numpy/native up to the
     final upload to ``device``.
+
+    ``n_planes`` may exceed the mesh's own plane count (the plane-sharded
+    path pads it to a multiple of the rank count), and the mesh may lack
+    the extrusion grid (the duct): the pair list and the cell tables are
+    built all the same and ``arrays.sasm`` is None.  The single-process
+    structured route (``matrix_values_layered``, ``residual_layered``)
+    raises on such a pattern.
     """
     from ..config import default_dtype
 
@@ -164,14 +174,18 @@ def build_layered(
 
     sasm = build_structured_plan(mesh, cd_p, cc_p, ep_p, n2d, Lp, E, bs,
                                  device)
-    if sasm is None:
-        raise ValueError("mesh does not carry the layer-invariant "
-                         "extrusion grid the structured assembly needs")
     arrays = LayeredArrays.from_numpy(dict(
         cell_dofs=cd_p, cell_coords=cc_p, ell_pos=ep_p, cols=cols2d,
         row_ids=rows2d, diag_pos=diag_pos), sasm, device)
     return LayeredPattern(n2d, Lp, E, bs, arrays,
                           np.asarray(rows2d), np.asarray(cols2d))
+
+
+def _plan(arrays: LayeredArrays) -> StructuredAsm:
+    if arrays.sasm is None:
+        raise ValueError("mesh does not carry the layer-invariant "
+                         "extrusion grid the structured assembly needs")
+    return arrays.sasm
 
 
 def matrix_values_layered(
@@ -185,7 +199,8 @@ def matrix_values_layered(
     """Layered Jacobian values V (bs, bs, 3, E, Lp): V[i, j, d, e, l] is
     the (row-component i, col-component j) entry of the block for layer
     offset d-1, pair e, row plane l."""
-    return matrix_values_structured(kernel, E, n_planes, bs, arrays.sasm, w)
+    return matrix_values_structured(kernel, E, n_planes, bs, _plan(arrays),
+                                    w)
 
 
 def residual_layered(
@@ -200,7 +215,7 @@ def residual_layered(
     the kernel has an SoA variant, the generic ``residual_of`` otherwise
     (the Stokes kernel)."""
     if kernel.res_soa is not None:
-        return residual_structured(kernel, n_planes, arrays.sasm, w)
+        return residual_structured(kernel, n_planes, _plan(arrays), w)
     return residual_of(kernel, n2d * n_planes * bs, arrays, w)
 
 

@@ -7,6 +7,12 @@ read of the inner products each step needs (where the JAX loops test
 their flags on the device).  Every method keeps the JAX arithmetic order
 and stopping rules, so iteration counts agree to the last bits of the
 inner products.
+
+Under ranks (parallel/): ``cg``, ``tfqmr`` and ``fgmres`` take
+``reduce``, a function that sums a tensor over the ranks (each rank holds
+a slice of every vector).  Partial dot products and squared norms are
+stacked, reduced once and then read.  With ``reduce=None`` (the default)
+no such call is made and the operations are those of a single process.
 """
 
 from __future__ import annotations
@@ -31,13 +37,35 @@ def _ident(x):
     return x
 
 
-def _norm(v: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(v))
+def _norm_t(v: torch.Tensor, reduce=None) -> torch.Tensor:
+    """|v| as a 0-d tensor; under ranks the root of the summed squares."""
+    if reduce is None:
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(reduce(torch.dot(v, v)))
+
+
+def _norm(v: torch.Tensor, reduce=None) -> float:
+    return float(_norm_t(v, reduce))
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, reduce=None) -> torch.Tensor:
+    """a . b as a 0-d tensor, summed over the ranks under ``reduce``."""
+    d = torch.dot(a, b)
+    return d if reduce is None else reduce(d)
 
 
 def _reads(*scalars: torch.Tensor):
     """Several 0-d tensors to Python floats with one device->host read."""
     return torch.stack(scalars).tolist()
+
+
+def _norm_and_dot(v, a, b, reduce=None):
+    """(|v|, a . b) as floats with one device->host read and, under
+    ranks, one reduction of the stacked partial sums."""
+    if reduce is None:
+        return _reads(torch.linalg.vector_norm(v), torch.dot(a, b))
+    vv, ab = reduce(torch.stack([torch.dot(v, v), torch.dot(a, b)])).tolist()
+    return math.sqrt(vv), ab
 
 
 def _div(a: float, b: float) -> float:
@@ -51,8 +79,8 @@ def _div(a: float, b: float) -> float:
         return math.copysign(math.inf, a) * math.copysign(1.0, b)
 
 
-def cg(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
-       ) -> KrylovResult:
+def cg(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000,
+       reduce=None) -> KrylovResult:
     """Preconditioned conjugate gradients (SPD systems); stops when
     |r| <= max(rtol |b|, atol) (the recursive residual)."""
     M = M or _ident
@@ -60,16 +88,16 @@ def cg(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
     r = b - A(x)
     z = M(r)
     p = z
-    tol = max(rtol * _norm(b), atol)
-    rn, rz = _reads(torch.linalg.vector_norm(r), torch.dot(r, z))
+    tol = max(rtol * _norm(b, reduce), atol)
+    rn, rz = _norm_and_dot(r, r, z, reduce)
     it = 0
     while rn > tol and it < max_it:
         Ap = A(p)
-        alpha = _div(rz, float(torch.dot(p, Ap)))
+        alpha = _div(rz, float(_dot(p, Ap, reduce)))
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rn, rz_new = _reads(torch.linalg.vector_norm(r), torch.dot(r, z))
+        rn, rz_new = _norm_and_dot(r, r, z, reduce)
         p = z + _div(rz_new, rz) * p
         rz = rz_new
         it += 1
@@ -110,8 +138,8 @@ def bicgstab(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
     return KrylovResult(x, it, rn, rn <= tol)
 
 
-def tfqmr(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
-          ) -> KrylovResult:
+def tfqmr(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000,
+          reduce=None) -> KrylovResult:
     """Right-preconditioned transpose-free QMR (Freund 1993).
 
     The reference's Newton Krylov: PETSc ``ksp_type tfqmr`` + ASM
@@ -129,14 +157,14 @@ def tfqmr(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else x0
     r0 = b - A(x)
-    tol = max(rtol * _norm(b), atol)
+    tol = max(rtol * _norm(b, reduce), atol)
     rstar = r0
     w = u = r0
     Mu = M(r0)
     Bu = A(Mu)
     v = Bu
     d = torch.zeros_like(b)
-    tau, rho = _reads(torch.linalg.vector_norm(r0), torch.dot(r0, r0))
+    tau, rho = _norm_and_dot(r0, r0, r0, reduce)
     theta = eta = sigma = 0.0
     alpha = 1.0
     tiny = 1e-30
@@ -146,15 +174,14 @@ def tfqmr(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
         if even:
             # v is unchanged over the odd half-step that follows, so its
             # sigma serves both halves
-            sigma = float(torch.dot(rstar, v))
+            sigma = float(_dot(rstar, v, reduce))
             alpha = _div(rho, sigma)
         w = w - alpha * Bu
         d = Mu + _div(theta * theta * eta, alpha) * d
         if even:
-            wn = _norm(w)
+            wn = _norm(w, reduce)
         else:
-            wn, rho_new = _reads(torch.linalg.vector_norm(w),
-                                 torch.dot(rstar, w))
+            wn, rho_new = _norm_and_dot(w, rstar, w, reduce)
         theta = _div(wn, tau)
         c = 1.0 / math.sqrt(1.0 + theta * theta)
         tau = tau * theta * c
@@ -174,7 +201,7 @@ def tfqmr(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
         brk = abs(sigma) < tiny or abs(rho) < tiny
         it += 1
     converged = tau * math.sqrt(it + 1) <= tol
-    return KrylovResult(x, it, _norm(b - A(x)), converged)
+    return KrylovResult(x, it, _norm(b - A(x), reduce), converged)
 
 
 def fgmres(
@@ -186,21 +213,24 @@ def fgmres(
     atol: float = 0.0,
     restart: int = 50,
     max_restarts: int = 40,
+    reduce: Optional[Callable] = None,
 ) -> KrylovResult:
     """FGMRES(m): Arnoldi with modified Gram-Schmidt; the Z basis stores
     preconditioned vectors, so M may itself be an inner iteration.  Each
     restart cycle ends with an exact residual recompute, and the solve
     stops when |b - A x| <= max(rtol |b|, atol) or after
-    ``max_restarts`` cycles; ``resnorm`` is that true residual."""
+    ``max_restarts`` cycles; ``resnorm`` is that true residual.  Under
+    ranks every Gram-Schmidt coefficient is reduced before it is
+    subtracted (the orthogonalisation stays the modified one)."""
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else x0
     n = b.shape[0]
     m = restart
-    tol = max(rtol * _norm(b), atol)
+    tol = max(rtol * _norm(b, reduce), atol)
 
     def arnoldi_cycle(x):
         r = b - A(x)
-        beta = _norm(r)
+        beta = _norm(r, reduce)
         V = b.new_zeros((m + 1, n))
         Z = b.new_zeros((m, n))
         H = np.zeros((m + 1, m))
@@ -215,10 +245,10 @@ def fgmres(
             w = A(z)
             h = []
             for i in range(j + 1):
-                hij = torch.dot(V[i], w)
+                hij = _dot(V[i], w, reduce)
                 w = w - hij * V[i]
                 h.append(hij)
-            hj1 = torch.linalg.vector_norm(w)
+            hj1 = _norm_t(w, reduce)
             H[:j + 2, j] = torch.stack(h + [hj1]).tolist()
             V[j + 1] = w / hj1 if H[j + 1, j] > 0 else w
             Z[j] = z
@@ -247,13 +277,13 @@ def fgmres(
         yt = torch.as_tensor(y[:steps], dtype=b.dtype, device=b.device)
         return x + yt @ Z[:steps], steps
 
-    rn = _norm(b - A(x))
+    rn = _norm(b - A(x), reduce)
     cycles = its = 0
     while rn > tol and cycles < max_restarts:
         x, steps = arnoldi_cycle(x)
         # exact residual recompute per cycle (the Givens estimate drifts
         # under a low-precision preconditioner)
-        rn = _norm(b - A(x))
+        rn = _norm(b - A(x), reduce)
         cycles += 1
         its += steps
     return KrylovResult(x, its, rn, rn <= tol)

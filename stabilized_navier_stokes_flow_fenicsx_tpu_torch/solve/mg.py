@@ -24,18 +24,27 @@ residuals stay in the caller's dtype; the coarsest level is inverted
 densely in float32 and polished by two Newton-Schulz steps.  Every level
 matvec is kernel K1 (assemble/layered_spmv.py) on the card, with the
 level's BC projection fused in.
+
+Under ranks (parallel/layered_shard.py) level 0 is plane-sharded and the
+coarse levels are replicated: ``SlabFine`` carries what differs there.
+Each rank forms its part of the first Galerkin product from its slab of
+values through its slice of ``seg_map`` and the parts are summed over the
+ranks; each rank restricts its rows through its slice of ``node_map`` and
+the coarse residual is summed; prolongation reads the slice.  The result
+is the single-process V-cycle up to summation order.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Mapping, Tuple
+from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..assemble.layered_spmv import LayeredOperand, project_values
 from ..utils.device import row_ptr_of, upload
+from .krylov import _norm_t
 from .precond import block_jacobi
 
 DENSE_CAP = 8192   # most dofs of a coarsest level the dense solve inverts
@@ -78,6 +87,19 @@ class MGLevel:
 class MGHierarchy:
     levels: Tuple[MGLevel, ...]
     dims: Tuple[Tuple[int, int, int], ...]      # (n2d, Lp, E) per level
+
+
+@dataclasses.dataclass
+class SlabFine:
+    """Level 0 of a plane-sharded V-cycle.  The hierarchy's level-0
+    ``seg_map`` and ``node_map`` are then this rank's slices, and the
+    values, mask and plane count given to ``make_mg_pc`` its slab's."""
+
+    operand: Callable   # (values, dtype) -> the slab's x -> A x (halo
+                        # exchange inside), with ``masks`` as K1's operand
+    project: Callable   # values -> P A P on the slab, columns by the
+                        # neighbours' mask planes at its two ends
+    reduce: Callable    # tensor -> its sum over the ranks
 
 
 def _aggregate_graph(rows: np.ndarray, cols: np.ndarray,
@@ -183,7 +205,7 @@ def build_mg_hierarchy(
     return MGHierarchy(levels=tuple(levels), dims=tuple(dims))
 
 
-def _lam_max_tail(Dinv, mv32, mk32, n_pow=12, burn_in=5):
+def _lam_max_tail(Dinv, mv32, mk32, n_pow=12, burn_in=5, reduce=None):
     """|lambda|max(D^-1 A) estimate that is robust on the nonnormal NS
     Jacobian: power iteration with a running MAX of the norm ratios over
     the tail iterations (float32).
@@ -194,13 +216,14 @@ def _lam_max_tail(Dinv, mv32, mk32, n_pow=12, burn_in=5):
     well below |lambda|; the Chebyshev polynomial then amplifies the modes
     above its interval.  The tail max samples the oscillation peak, and
     leftover nonnormal transient growth biases it high — the safe
-    direction.
+    direction.  ``reduce`` sums the squared norms over the ranks when the
+    level is sharded.
     """
-    v = mk32 / torch.clamp_min(torch.linalg.vector_norm(mk32), 1e-30)
+    v = mk32 / torch.clamp_min(_norm_t(mk32, reduce), 1e-30)
     best = torch.zeros((), dtype=torch.float32, device=mk32.device)
     for i in range(n_pow):
         w = Dinv(mv32(v))
-        nw = torch.clamp_min(torch.linalg.vector_norm(w), 1e-30)
+        nw = torch.clamp_min(_norm_t(w, reduce), 1e-30)
         if i >= burn_in:
             best = torch.maximum(best, nw)
         v = w / nw
@@ -232,21 +255,31 @@ def galerkin_levels(
     mask: torch.Tensor,
     n2d: int,
     n_planes: int,
+    fine: Optional[SlabFine] = None,
 ) -> List[LevelOperator]:
     """The fine level plus one RAP product per hierarchy level.
 
     Level 0 keeps the RAW value tensor (every V-cycle matvec is already
-    mask-composed); projection happens transiently inside the RAP only."""
+    mask-composed); projection happens transiently inside the RAP only.
+    With ``fine`` the first product is this rank's part, summed over the
+    ranks."""
     bs = values.shape[0]
     ops = [LevelOperator(values, cols, row_ids, row_ptr, diag_pos, mask,
                          n2d, n_planes)]
-    for lev, (n_c, L_c, E_c) in zip(hierarchy.levels, hierarchy.dims):
+    for k, (lev, (n_c, L_c, E_c)) in enumerate(
+            zip(hierarchy.levels, hierarchy.dims)):
         f = ops[-1]
-        Vf = project_values(f.values, f.mask.to(values.dtype), f.cols,
-                            f.row_ids, f.n2d, f.n_planes)
+        sharded = fine is not None and k == 0
+        if sharded:
+            Vf = fine.project(f.values)
+        else:
+            Vf = project_values(f.values, f.mask.to(values.dtype), f.cols,
+                                f.row_ids, f.n2d, f.n_planes)
         n_seg_c = 3 * E_c * L_c
         Vc = Vf.new_zeros((bs * bs, n_seg_c + 1))
         Vc.index_add_(1, lev.seg_map, Vf.reshape(bs * bs, -1))
+        if sharded:
+            Vc = fine.reduce(Vc)
         Vc = Vc[:, :n_seg_c].reshape(bs, bs, 3, E_c, L_c)
         # re-project: aggregates can mix free/constrained dofs
         Vc = project_values(Vc, lev.mask.to(Vc.dtype), lev.cols,
@@ -269,6 +302,7 @@ def make_mg_pc(
     n_planes: int,
     pc_dtype=None,
     cheby_degree: int = 6,
+    fine: Optional[SlabFine] = None,
 ) -> Callable:
     """V-cycle preconditioner closure r -> x.
 
@@ -277,12 +311,16 @@ def make_mg_pc(
     interval top from ``_lam_max_tail`` times ``CHEBY_SAFETY``; the
     polynomial is fixed once built, so the smoother is a linear operator.
     The coarsest level is solved exactly by a dense float32 inverse; a
-    hierarchy whose coarsest level exceeds ``DENSE_CAP`` dofs raises."""
+    hierarchy whose coarsest level exceeds ``DENSE_CAP`` dofs raises.
+    ``fine``: level 0 is this rank's slab (``SlabFine``); the levels
+    below it and the coarse inverse are the same on every rank."""
     bs = values.shape[0]
     f32 = torch.float32
     ops = galerkin_levels(hierarchy, values, cols, row_ids, row_ptr,
-                          diag_pos, mask, n2d, n_planes)
+                          diag_pos, mask, n2d, n_planes, fine)
     top = ops[-1]
+    if fine is not None and len(ops) == 1:
+        raise ValueError("a plane-sharded V-cycle needs a coarse level")
     if top.n2d * top.n_planes * bs > DENSE_CAP:
         raise ValueError(
             f"coarsest level has {top.n2d * top.n_planes * bs} dofs, more "
@@ -292,12 +330,16 @@ def make_mg_pc(
 
     smoothers = []
     matvecs = []
-    for op in ops:
+    for k, op in enumerate(ops):
         # K1's operand: the V-cycle streams its values in pc_dtype (half
         # the bytes in bf16; the cast rides the layout copy), masked; it
         # serves f64 residuals (mv) and the f32 smoother (mv32) alike
-        mv = LayeredOperand(op.values, op.cols, op.row_ptr, op.n2d,
-                            mask=op.mask, dtype=pc_dtype)
+        sharded = fine is not None and k == 0
+        if sharded:
+            mv = fine.operand(op.values, pc_dtype)
+        else:
+            mv = LayeredOperand(op.values, op.cols, op.row_ptr, op.n2d,
+                                mask=op.mask, dtype=pc_dtype)
         matvecs.append(mv)
         mk32 = mv.masks[f32]
 
@@ -307,7 +349,8 @@ def make_mg_pc(
         blocks = d.permute(3, 2, 0, 1).reshape(-1, bs, bs)
         Dinv = block_jacobi(blocks.to(f32), mk32)
         ub = CHEBY_SAFETY * torch.clamp_min(
-            _lam_max_tail(Dinv, mv, mk32), 1e-6)
+            _lam_max_tail(Dinv, mv, mk32,
+                          reduce=fine.reduce if sharded else None), 1e-6)
         lb = ub / CHEBY_ALPHA
         theta = 0.5 * (ub + lb)
         delta = 0.5 * (ub - lb)
@@ -334,6 +377,8 @@ def make_mg_pc(
         c = ops[k + 1]
         rc = r.new_zeros((c.n2d * c.n_planes, bs))
         rc.index_add_(0, hierarchy.levels[k].node_map, r.reshape(-1, bs))
+        if fine is not None and k == 0:
+            rc = fine.reduce(rc)
         return rc.reshape(-1)
 
     def prolong(k, xc):

@@ -10,12 +10,12 @@ search.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from .krylov import fgmres, tfqmr
+from .krylov import _norm, fgmres, tfqmr
 
 KSP_TYPES = ("fgmres", "tfqmr")
 
@@ -36,10 +36,6 @@ class NewtonResult:
     stalled: bool = False
 
 
-def _norm(v: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(v))
-
-
 def newton_solve(
     residual: Callable,            # x -> F(x)  (BC rows already substituted)
     jac_values: Callable,          # x -> values of dF/dx
@@ -54,9 +50,15 @@ def newton_solve(
     ksp_max_restarts: int = 40,
     max_backtracks: int = 8,
     ksp: str = "fgmres",
+    reduce: Optional[Callable] = None,
 ) -> NewtonResult:
     """Newton to ||F|| <= max(rtol ||F(x0)||, atol) with Krylov steps and
     a backtracking line search (Armijo factor 1 - 1e-4 lambda).
+
+    Under ranks (parallel/) ``x0`` and every vector are this rank's
+    slice and ``reduce`` sums a tensor over the ranks: the norms and the
+    Krylov inner products go through it.  With ``reduce=None`` nothing
+    does.
 
     ksp="fgmres" (default) or "tfqmr", the reference's SNES KSP
     (NavierStokesChannelFlow.py:198-202); TFQMR gets FGMRES's total
@@ -65,7 +67,7 @@ def newton_solve(
         raise ValueError(f"ksp={ksp!r}: expected one of {KSP_TYPES}")
     x = x0
     F = residual(x0)
-    fnorm = _norm(F)
+    fnorm = _norm(F, reduce)
     tol = max(rtol * fnorm, atol)
     hist = []
     it, stalled = 0, False
@@ -74,10 +76,11 @@ def newton_solve(
         A, M = make_operator(vals), make_pc(vals)
         if ksp == "tfqmr":
             sol = tfqmr(A, -F, M=M, rtol=ksp_rtol,
-                        max_it=ksp_restart * ksp_max_restarts)
+                        max_it=ksp_restart * ksp_max_restarts,
+                        reduce=reduce)
         else:
             sol = fgmres(A, -F, M=M, rtol=ksp_rtol, restart=ksp_restart,
-                         max_restarts=ksp_max_restarts)
+                         max_restarts=ksp_max_restarts, reduce=reduce)
         dx = sol.x
 
         # backtracking on ||F||; the full step's trial is kept for the
@@ -86,7 +89,7 @@ def newton_solve(
         F1 = n1 = None
         for k in range(max_backtracks):
             Ft = residual(x + lam * dx)
-            trial = _norm(Ft)
+            trial = _norm(Ft, reduce)
             if k == 0:
                 F1, n1 = Ft, trial
             if trial < (1.0 - 1e-4 * lam) * fnorm:

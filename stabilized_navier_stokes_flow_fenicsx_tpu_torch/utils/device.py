@@ -15,6 +15,12 @@ def upload(a, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
+def host_array(t) -> np.ndarray:
+    """A tensor (on any device) or array as a host numpy array."""
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
 def row_ptr_of(row_ids: np.ndarray, n_rows: int) -> np.ndarray:
     """CSR row pointer (n_rows + 1,) of a row-sorted pair list."""
     counts = np.bincount(np.asarray(row_ids, np.int64), minlength=n_rows)

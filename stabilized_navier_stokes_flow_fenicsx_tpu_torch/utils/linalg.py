@@ -1,8 +1,10 @@
-"""Closed-form 2x2 and 3x3 determinant and inverse (element geometry).
+"""Closed-form 2x2 and 3x3 determinant and inverse (element geometry),
+and a dense QR solve.
 
-Counterpart of the JAX package's ``utils/linalg.py`` for the triangle and
-tetrahedron element Jacobians: pure elementwise arithmetic, batched over
-any leading axes and differentiable under ``torch.func``.
+Counterpart of the JAX package's ``utils/linalg.py``.  ``det_small`` and
+``inv_small`` serve the triangle and tetrahedron element Jacobians: pure
+elementwise arithmetic, batched over any leading axes and differentiable
+under ``torch.func``.
 """
 
 from __future__ import annotations
@@ -51,3 +53,13 @@ def inv_small(A: torch.Tensor) -> torch.Tensor:
                     dim=-1),
     ], dim=-2)
     return adj / d[..., None, None]
+
+
+def solve_dense_qr(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dense solve A x = b via QR: R x = Q^T b by back substitution."""
+    Q, R = torch.linalg.qr(A)
+    rhs = Q.mT @ b
+    if b.dim() == 1:
+        return torch.linalg.solve_triangular(R, rhs[:, None],
+                                             upper=True)[:, 0]
+    return torch.linalg.solve_triangular(R, rhs, upper=True)
