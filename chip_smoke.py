@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-1. prints the card (nvidia-smi name and power limit) and builds kernel K1
-   (the layered SpMV, csrc/layered_spmv.cu) with nvcc into
-   build/torch_kernels/;
+1. prints the card (nvidia-smi name and power limit) and builds kernels
+   K1 (the layered SpMV, csrc/layered_spmv.cu) and K2 (the plane
+   Gauss-Seidel sweep, csrc/plane_gs.cu) with nvcc into
+   build/torch_kernels/, both at once;
 2. assembles the lc=0.04 production channel (230,692 dofs) at the stored
    solution's state, with its multigrid hierarchy, and holds K1's
    prepared operand against its plain PyTorch version for the four
@@ -20,8 +21,9 @@
    (``torch.sparse_bsr_tensor`` @ x, L2 flushed);
 3. runs the main path, ``flow.channel.solve_ns_flow(10, circle, 0.5,
    lc=0.04)`` in float64 on the card, and checks that it converged, that
-   it matches tests/fixtures/channel_ns_prod.npz to rel-L2 < 1e-6, and
-   that the solve launched K1 for each type pair;
+   it matches tests/fixtures/channel_ns_prod.npz to rel-L2 < 1e-6, that
+   the solve launched K1 for each type pair and that its Stokes solve
+   (``pc="mg"``, the plane-GS V-cycle) launched K2;
 4. traces the card's own solution at full width,
    ``trace.pipeline.for_and_rev_streamtrace(200, ...)`` (386 forward
    seeds, a 200 x 200 reverse grid), and holds it against
@@ -44,8 +46,10 @@
    V-cycle on f64 values; TFQMR breaks down under the bf16 one, see
    ``run_tfqmr_main_path``): checks that every Newton step ran
    TFQMR, that it converged within the Newton budget, that it matches
-   channel_ns_prod.npz to rel-L2 < 1e-6 and that it launched K1 for each
-   type pair; prints TFQMR matvecs per Newton step and the wall time;
+   channel_ns_prod.npz to rel-L2 < 1e-6 and that it launched K1 for the
+   two pairs of its f64-valued V-cycles (its Stokes solve is ``pc="mg"``,
+   its Newton ``mg_cheby``); prints TFQMR matvecs per Newton step and the
+   wall time;
 8. runs the block-CSR path at the reference's sizes, each case against
    its bar: the Ghia cavity ``solve_lid_driven(32, 100)`` (<= 12 Newton
    steps, centreline u_min in (-0.25, -0.14), corner pressure within
@@ -116,7 +120,19 @@
    same function on CPU tensors (rel 1e-10).  The multi-rank arithmetic
    is held on the CPU (tests/test_torch_layered_shard.py,
    tests/test_torch_sharding.py); one card proves the path runs there;
-15. prints one JSON line of kernel results (error: the largest over the
+15. K2 against its plain version on every smoothed V-cycle level of the
+   lc=0.04 channel (levels 0-2; the coarsest is solved densely), at the
+   Stokes matrix J(0) and at the NS Jacobian of the stored solution, for
+   its two type pairs (f64 values and iterate: ``pc="mg"``; bf16 values,
+   f32 iterate: ``mg_bf16``); its time with L2 flushed, its bound (bytes
+   over 3.35 TB/s, or its FLOP where they take longer) and the plain
+   version's time.  No PyTorch call computes a plane-GS sweep, so it has
+   no library time.  Then ``solve_linear_layered`` on that channel's
+   Stokes system with ``pc="mg_cheby_bf16"``, ``"mg"`` and ``"mg_bf16"``:
+   all converged, the two plane-GS solves within rel-L2 1e-6 of the
+   Chebyshev one, each launching K2 for its pair; prints FGMRES counts,
+   walls and launches;
+16. prints one JSON line of kernel results (error: the largest over the
    levels checked in phases 2, 11 and 14; times, bound and library time:
    level 0 of the channel with the mask fused, as the solve calls it, L2
    flushed; ``ms_b2b`` back to back, ``ms_unmasked`` flushed without the
@@ -126,7 +142,10 @@
    phase 11's solve; ``launches_sharded``: phase 14's sharded solve;
    ``ms_dfg3d``, ``bound_ms_dfg3d``: level 0 of the pillar operator,
    masked, flushed; ``ms_slab``, ``bound_ms_slab``: the slab operand of
-   phase 14, likewise), then the final JSON status line.
+   phase 14, likewise; for K2: the largest error over phase 15's levels
+   and states, the times and bound at level 0 of the Stokes matrix, the
+   launches of phase 3 for f64 and of phase 15's ``mg_bf16`` solve for
+   bf16), then the final JSON status line.
    The trace, the block-CSR path and the host-LU path run no
    hand-written kernel, so they add no entry.
 
@@ -157,17 +176,28 @@ RE_WARM = 20.0
 NUM_SEEDS = 200            # reverse grid per side (InletBatchScript.py:41)
 TPU_KERNEL = ("stabilized_navier_stokes_flow_fenicsx_tpu/assemble/"
               "pallas_spmv.py:107")
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
+FLUSH_BYTES = 256 * 2 ** 20  # written between flushed launches (> 50 MB L2)
 # (values dtype, x dtype, rel-L2 tolerance of kernel vs plain, the path
 # whose launches the kernels line reports: "main" = phase 3, "tfqmr" =
 # phase 7): f64 differs only in summation order; with bf16 values the
 # plain version rounds each product to bf16, the kernel takes it in the x
 # dtype; f64 values with f32 x (phase 7's mg_cheby smoother) sum in f32
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
-FLUSH_BYTES = 256 * 2 ** 20  # written between flushed launches (> 50 MB L2)
 PAIRS = (("float64", "float64", 1e-12, "main"),
          ("bfloat16", "float32", 5e-3, "main"),
          ("bfloat16", "float64", 5e-3, "main"),
          ("float64", "float32", 1e-5, "tfqmr"))
+# K2, the plane-GS sweep: (values dtype, iterate dtype, rel-L2 tolerance
+# of kernel vs plain, the path whose launches the kernels line reports:
+# "main" = phase 3, whose Stokes solve runs pc="mg"; "mg_bf16" = phase
+# 15's Stokes solve with that PC).  Both sides read the same values and
+# inverses and compute in the iterate's type; they differ in the
+# summation order of the 2D products only, which the sweep carries from
+# plane to plane (hence 1e-10, not K1's 1e-12, in f64)
+K2_PAIRS = (("float64", "float64", 1e-10, "main"),
+            ("bfloat16", "float32", 1e-4, "mg_bf16"))
+K2_REPLACES = ("stabilized_navier_stokes_flow_fenicsx_tpu/solve/"
+               "precond.py:251")
 
 
 def fail(msg: str) -> int:
@@ -452,10 +482,13 @@ def run_main_path(torch, np, img, device):
     """Phase 3: the lc=0.04 continuation solve on the card."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
         solve_ns_flow)
 
     layered_spmv.reset_launches()
+    plane_gs.reset_launches()
     t0 = time.perf_counter()
     sol = solve_ns_flow(RE, img, RATIO, channel_mesh_size=LC, coarse_lc=LC,
                         device=device)
@@ -463,6 +496,7 @@ def run_main_path(torch, np, img, device):
     wall = time.perf_counter() - t0
     launches = dict(layered_spmv.LAUNCHES_BY_DTYPES)
     total = layered_spmv.LAUNCHES
+    k2_launches = dict(plane_gs.LAUNCHES_BY_DTYPES)
 
     print(f"solve_ns_flow: {wall:.2f} s wall, timings "
           f"{json.dumps({k: round(v, 4) for k, v in sol.timings.items()})}",
@@ -474,10 +508,11 @@ def run_main_path(torch, np, img, device):
         print(f"{name}: FGMRES its {[int(r[2]) for r in h]}, lambda "
               f"{[float(r[1]) for r in h]}, |F| "
               f"{[float('%.3e' % r[0]) for r in h]}", flush=True)
-    by_pair = {f"{str(v).removeprefix('torch.')} values, "
-               f"{str(x).removeprefix('torch.')} x": n
-               for (v, x), n in launches.items()}
-    print(f"K1 launches in the solve: {total} {by_pair}", flush=True)
+    print(f"K1 launches in the solve: {total} {_by_pair(launches)}",
+          flush=True)
+    print(f"K2 launches in the solve (its Stokes V-cycle, pc="
+          f"{DEFAULT.solver.pc!r}): {plane_gs.LAUNCHES} "
+          f"{_by_pair(k2_launches)}", flush=True)
 
     w_ref = np.load(FIXTURE)["w"]
     if not sol.converged:
@@ -493,7 +528,9 @@ def run_main_path(torch, np, img, device):
         raise RuntimeError(f"solution rel-L2 {rel:.3e} >= 1e-6")
     if total <= 0:
         raise RuntimeError("the solve never launched K1")
-    return launches, sol
+    if plane_gs.LAUNCHES <= 0:
+        raise RuntimeError("the solve never launched K2")
+    return launches, k2_launches, sol
 
 
 def _on_card(*tensors) -> bool:
@@ -654,8 +691,8 @@ def run_tfqmr_main_path(torch, np, img, device):
     # (f32 iterate over bf16 values) its quasi-residual stalled at the
     # 2,000-matvec budget on Newton steps 2 and 3 and broke down to NaN on
     # step 4 at this size on the H100 (PERF.md), so its Newton runs
-    # the V-cycle on f64 values (mg_cheby); the Stokes solve keeps
-    # mg_cheby_bf16 with FGMRES
+    # the V-cycle on f64 values (mg_cheby); the Stokes solve keeps the
+    # default pc="mg" (plane GS on f64 values) with FGMRES
     scfg = SolverConfig(ksp_type="tfqmr", pc_newton="mg_cheby")
     cfg = dataclasses.replace(DEFAULT, solver=scfg)
     tfqmr, runs = newton.tfqmr, []
@@ -686,9 +723,7 @@ def run_tfqmr_main_path(torch, np, img, device):
         print(f"{name} (TFQMR): matvecs per Newton step "
               f"{[int(r[2]) for r in h]}, lambda {[float(r[1]) for r in h]}, "
               f"|F| {[float('%.3e' % r[0]) for r in h]}", flush=True)
-    by_pair = {f"{str(v).removeprefix('torch.')} values, "
-               f"{str(x).removeprefix('torch.')} x": n
-               for (v, x), n in launches.items()}
+    by_pair = _by_pair(launches)
     print(f"TFQMR: {len(steps)} Newton steps, {len(runs)} TFQMR runs, "
           f"{sum(runs)} matvecs ({sum(r >= budget for r in runs)} at the "
           f"{budget}-matvec budget); K1 launches {total} {by_pair}",
@@ -996,9 +1031,7 @@ def run_dfg3d(torch, np, device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(layered_spmv.LAUNCHES_BY_DTYPES)
-    by_pair = {f"{str(v).removeprefix('torch.')} values, "
-               f"{str(x).removeprefix('torch.')} x": n
-               for (v, x), n in launches.items()}
+    by_pair = _by_pair(launches)
     for nu, its, ksp, fnorm, t in r.rungs:
         print(f"DFG 3D rung nu={nu:g}: Newton steps {its}, FGMRES its {ksp}, "
               f"|F| {fnorm:.3e}, {t:.2f} s", flush=True)
@@ -1263,9 +1296,7 @@ def run_sharded(torch, np, img, device):
     rel = _rel(np, x.cpu().numpy(), ref.x.cpu().numpy())
     its_ref = [int(r[2]) for r in ref.history]
     its = [int(r[2]) for r in out.history]
-    by_pair = {f"{str(v).removeprefix('torch.')} values, "
-               f"{str(xd).removeprefix('torch.')} x": n
-               for (v, xd), n in launches.items()}
+    by_pair = _by_pair(launches)
     print(f"sharded layered Newton (world size 1, nccl) on {lp.ndofs} dofs: "
           f"problem set-up {t_setup:.2f} s, host pattern {t_host:.2f} s, "
           f"solve {t_shard:.2f} s, Newton steps {out.iters}, FGMRES its "
@@ -1290,6 +1321,164 @@ def run_sharded(torch, np, img, device):
     return slab_checks, launches
 
 
+def k2_bytes(op) -> int:
+    """Bytes one K2 call must move: the three value slices and the block
+    inverses (value type) once, the mask and r read once and x written
+    once (iterate type), and the pair tables (cols, row_ptr)."""
+    vsize, asize = op.values.element_size(), op.mask.element_size()
+    ndofs = op.Lp * op.n2d * 4
+    return ((3 * op.E + op.n2d) * op.Lp * 16 * vsize + 3 * ndofs * asize
+            + 8 * op.E + 8 * (op.n2d + 1))
+
+
+def k2_bound(op):
+    """(bound_ms, bound_by): the larger of the bytes over the H100's
+    3.35 TB/s and the sweep's FLOP over its peak for the iterate's type
+    outside the tensor cores (67 TFLOP/s f32, 34 TFLOP/s f64).  Per plane
+    and direction: the coupling product (2 FLOP per value of a slice) and
+    ``inner_sweeps`` products with V0, each stage with a 4x4 block
+    inverse per row (2 * 16 FLOP)."""
+    import torch
+
+    t_bytes = k2_bytes(op) / HBM_BYTES_PER_S * 1e3
+    stages = 1 + op.inner_sweeps
+    per_plane = stages * (2 * 16 * op.E + 2 * 16 * op.n2d)
+    flops = (2 if op.symmetric else 1) * op.Lp * per_plane
+    peak = 34e12 if op.adtype == torch.float64 else 67e12
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_plane_gs(torch, np, img, device):
+    """Phase 15: K2 against its plain version on every smoothed V-cycle
+    level of the lc=0.04 channel, at the Stokes matrix J(0) and at the NS
+    Jacobian of the stored solution, for both type pairs, with its
+    yardsticks; then the Stokes solve with pc="mg" and "mg_bf16" against
+    the "mg_cheby_bf16" one.  Returns (checks by pair, K2 launches of the
+    mg_bf16 solve by pair)."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
+        matrix_values_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
+        _setup_layered, generate_channel_mesh)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
+        solve_inlet_profiles)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
+        make_ns_sups_kernel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.stokes import (
+        make_stokes_kernel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
+        solve_linear_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
+        galerkin_levels)
+
+    t0 = time.perf_counter()
+    inlet1, inlet2 = solve_inlet_profiles(img, RATIO, DEFAULT)
+    mesh, _, _ = generate_channel_mesh(img, LC, DEFAULT)
+    st = _setup_layered(mesh, inlet1, inlet2, torch.float64,
+                        DEFAULT.solver.mg_levels, device)
+    lp, a = st.lp, st.lp.arrays
+    stokes_k = make_stokes_kernel(
+        "tetrahedron", nu=1.0, mu_T_coeff=DEFAULT.stab.stokes_mu_T_coeff)
+    ns_k = make_ns_sups_kernel("tetrahedron", nu=1.0 / RE,
+                               C_I=DEFAULT.stab.C_I)
+    states = (("Stokes J(0)", stokes_k, torch.zeros_like(st.mask)),
+              ("NS J(w*)", ns_k,
+               torch.as_tensor(np.load(FIXTURE)["w"], device=device)))
+    flush = L2Flush(torch, device)
+    rng = np.random.default_rng(3)
+    checks = {p[:2]: dict(errs=[]) for p in K2_PAIRS}
+    for state, kern, w in states:
+        vals = matrix_values_layered(kern, lp.E, lp.n_planes, lp.bs, a, w)
+        levels = galerkin_levels(st.mg, vals, a.cols, a.row_ids, a.row_ptr,
+                                 a.diag_pos, st.mask, lp.n2d, lp.n_planes)
+        print(f"K2 shapes at {state}: (E, Lp, n2d) per smoothed level "
+              f"{[(op.values.shape[3], op.n_planes, op.n2d) for op in levels[:-1]]}"
+              f" (the coarsest, {levels[-1].n2d * levels[-1].n_planes * 4} "
+              f"dofs, is solved densely)", flush=True)
+        for k, op in enumerate(levels[:-1]):
+            r = torch.as_tensor(rng.standard_normal(op.mask.numel()),
+                                device=device)
+            for vname, aname, tol, _ in K2_PAIRS:
+                K = plane_gs.PlaneGSOperand(
+                    op.values, op.cols, op.row_ptr, op.diag_pos, op.mask,
+                    op.n2d, dtype=getattr(torch, vname))
+                x_k = K(r)
+                torch.cuda.synchronize()
+                x_p = plane_gs.plane_gs_plain(K, r)
+                torch.cuda.synchronize()
+                diff = x_k - x_p
+                max_abs = float(diff.abs().max())
+                rel = float(torch.linalg.vector_norm(diff)
+                            / torch.linalg.vector_norm(x_p))
+                if not torch.isfinite(x_k).all() or rel > tol:
+                    raise RuntimeError(
+                        f"K2 ({vname} values, {aname} iterate) disagrees "
+                        f"with its plain version at {state} on level {k}: "
+                        f"rel-L2 {rel:.3e} > {tol:g}")
+                c = checks[(vname, aname)]
+                c["errs"].append(max_abs)
+                ms = time_flushed_ms(lambda: K(r), flush)
+                bound, bound_by = k2_bound(K)
+                line = (f"K2 ({vname} values, {aname} iterate) {state} level "
+                        f"{k}: rel-L2 {rel:.3e} (tol {tol:g}), max abs err "
+                        f"{max_abs:.3e}; L2-flushed {ms:.4f} ms, bound "
+                        f"{bound:.4f} ms ({bound_by}; {bound / ms:.2%} of "
+                        f"it)")
+                # the plain version (a Python loop over planes) is timed
+                # where the kernels line reads it: level 0 of J(0)
+                if k == 0 and state.startswith("Stokes"):
+                    plain_ms = time_ms(
+                        lambda: plane_gs.plane_gs_plain(K, r), 5)
+                    line += f", plain {plain_ms:.4f} ms"
+                    c.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=bound_by)
+                print(line, flush=True)
+        del levels, vals
+    del flush
+    print(f"K2 checks: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    sols, launches = {}, {}
+    for pc in ("mg_cheby_bf16", "mg", "mg_bf16"):
+        plane_gs.reset_launches()
+        layered_spmv.reset_launches()
+        t0 = time.perf_counter()
+        res = solve_linear_layered(
+            stokes_k, lp.n2d, lp.n_planes, lp.bs, a, st.mask, st.g, lp.E,
+            1e-8, DEFAULT.solver.ksp_restart, pc, st.mg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[pc] = dict(plane_gs.LAUNCHES_BY_DTYPES)
+        print(f"Stokes lc={LC:g} pc={pc}: FGMRES its {res.iters}, converged "
+              f"{res.converged}, {wall:.2f} s wall; K2 launches "
+              f"{plane_gs.LAUNCHES} {_by_pair(launches[pc])}, K1 launches "
+              f"{layered_spmv.LAUNCHES}", flush=True)
+        _bar(res.converged and bool(torch.isfinite(res.x).all()),
+             f"the pc={pc} Stokes solve converged")
+        sols[pc] = res.x.cpu().numpy()
+    for pc in ("mg", "mg_bf16"):
+        rel = _rel(np, sols[pc], sols["mg_cheby_bf16"])
+        print(f"Stokes pc={pc} vs pc=mg_cheby_bf16: rel-L2 {rel:.3e} (bar "
+              f"1e-6)", flush=True)
+        _bar(rel < 1e-6, f"the pc={pc} and mg_cheby_bf16 Stokes solves "
+                         f"agree to rel-L2 1e-6")
+    for (vname, aname), pc in (((v, x), "mg" if p == "main" else p)
+                               for v, x, _, p in K2_PAIRS):
+        key = (getattr(torch, vname), getattr(torch, aname))
+        _bar(launches[pc].get(key, 0) > 0,
+             f"the pc={pc} Stokes solve launched K2 ({vname}, {aname})")
+    return checks, launches["mg_bf16"]
+
+
+def _by_pair(launches) -> dict:
+    return {f"{str(v).removeprefix('torch.')} values, "
+            f"{str(x).removeprefix('torch.')} x": n
+            for (v, x), n in launches.items()}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1307,6 +1496,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import nvcc
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
         make_annulus_image)
 
@@ -1321,11 +1512,15 @@ def main() -> int:
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on {kind}",
           flush=True)
 
+    # both kernels' nvcc runs at once, then each wrapper loads its library
     t0 = time.perf_counter()
+    nvcc.build("layered_spmv", "plane_gs")
     layered_spmv.build()
-    print(f"K1 build: {time.perf_counter() - t0:.2f} s", flush=True)
-    print("\n".join(line for line in layered_spmv.BUILD_LOG.splitlines()
-                    if "ptxas" in line), flush=True)
+    plane_gs.build()
+    print(f"K1 and K2 build: {time.perf_counter() - t0:.2f} s", flush=True)
+    print("\n".join(line for log in nvcc.LOGS.values()
+                    for line in log.splitlines() if "ptxas" in line),
+          flush=True)
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -1334,7 +1529,7 @@ def main() -> int:
     try:
         checks = check_levels(torch, np, k1_levels(torch, np, img, device),
                               PAIRS, device)
-        launches, sol = run_main_path(torch, np, img, device)
+        launches, k2_main, sol = run_main_path(torch, np, img, device)
         inlet1 = run_trace(torch, np, img, sol, device)
         check_trace_arithmetic(torch, np, sol, inlet1, device)
         run_warm_sweep(torch, np, img, sol, device)
@@ -1346,6 +1541,7 @@ def main() -> int:
         run_apps_route(torch, np, img, device)
         run_reynolds_ladder(torch, np, img, device)
         slab_checks, sharded_launches = run_sharded(torch, np, img, device)
+        k2_checks, k2_bf16 = run_plane_gs(torch, np, img, device)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
@@ -1363,7 +1559,9 @@ def main() -> int:
     missing = [c["pair"] for c in checks if count(c, c["path"]) == 0]
     if missing:
         return fail(f"the solve of its path never launched K1 for {missing}")
-    missing = [c["pair"] for c in checks if count(c, "tfqmr") == 0]
+    # the TFQMR path's V-cycles stream f64 values only
+    missing = [c["pair"] for c in checks
+               if c["pair"][0] == "float64" and count(c, "tfqmr") == 0]
     if missing:
         return fail(f"the TFQMR solve never launched K1 for {missing}")
     print(f"chip_smoke: all phases passed in "
@@ -1392,7 +1590,23 @@ def main() -> int:
         ms_slab=on_slab[c["pair"]]["ms"] if c["pair"] in on_slab else None,
         bound_ms_slab=on_slab[c["pair"]]["bound_ms"]
         if c["pair"] in on_slab else None)
-        for c in checks]}), flush=True)
+        for c in checks] + [dict(
+        name=f"plane_gs[{vname} values, {aname} iterate]",
+        route="cuda",
+        source=f"{PKG}/csrc/plane_gs.cu",
+        replaces=K2_REPLACES,
+        launches=(k2_main if path == "main" else k2_bf16).get(
+            (getattr(torch, vname), getattr(torch, aname)), 0),
+        path=path,
+        max_abs_err=max(k2_checks[(vname, aname)]["errs"]),
+        ms=k2_checks[(vname, aname)]["ms"],
+        plain_ms=k2_checks[(vname, aname)]["plain_ms"],
+        bound_ms=k2_checks[(vname, aname)]["bound_ms"],
+        bound_by=k2_checks[(vname, aname)]["bound_by"],
+        library_ms=None,
+        library="none: no single PyTorch call computes a plane Gauss-Seidel "
+                "sweep")
+        for vname, aname, _, path in K2_PAIRS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

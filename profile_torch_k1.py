@@ -81,6 +81,7 @@ def main() -> int:
     import chip_smoke as cs
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv as new)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import nvcc
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
         make_annulus_image)
 
@@ -94,7 +95,8 @@ def main() -> int:
     if old is not None:
         old.build()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    print("\n".join(line for line in new.BUILD_LOG.splitlines()
+    print("\n".join(line for line in nvcc.LOGS.get("layered_spmv", "")
+                    .splitlines()
                     if "ptxas" in line and ("registers" in line
                                             or "spill" in line)),
           flush=True)
@@ -119,7 +121,7 @@ def main() -> int:
         rows.append(kw)
         print(json.dumps(kw), flush=True)
 
-    for vname, xname, _ in cs.PAIRS:
+    for vname, xname, _, _ in cs.PAIRS:
         vdt, xdt = getattr(torch, vname), getattr(torch, xname)
         for k in on_levels[(vname, xname)]:
             op = levels[k]
@@ -165,7 +167,7 @@ def main() -> int:
                                masked=True, kernel=name,
                                host_us_per_call=host_us(torch, fns[name]))
     # launch shapes of the current kernel at level 0
-    for vname, xname, _ in cs.PAIRS:
+    for vname, xname, _, _ in cs.PAIRS:
         vdt, xdt = getattr(torch, vname), getattr(torch, xname)
         block0 = new.BLOCK_THREADS, new.VEC_BYTES
         op, xt = levels[0], xs[0].to(xdt)

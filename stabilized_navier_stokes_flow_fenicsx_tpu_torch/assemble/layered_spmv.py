@@ -27,25 +27,23 @@ optionally with the Dirichlet projection fused in: m * A (m * x) +
   values dtype.
 
 The kernel is built at first use with ``nvcc`` from the package's own
-source into ``build/torch_kernels/`` of the checkout (route: a shared
-library with a plain C interface, loaded with ctypes).  ``LAUNCHES``
-counts kernel launches.
+source into ``build/torch_kernels/`` of the checkout (utils/nvcc.py;
+route: a shared library with a plain C interface, loaded with ctypes).
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..utils import nvcc
+
 LAUNCHES = 0          # kernel launches since import (or the last reset)
 # the same launches by (values dtype, x dtype)
 LAUNCHES_BY_DTYPES: Dict[Tuple[torch.dtype, torch.dtype], int] = {}
-BUILD_LOG = ""        # nvcc/ptxas output of the build
 
 _BS = 4
 _NROW = 3 * _BS * _BS     # value rows of one pair
@@ -59,11 +57,6 @@ PAIRS = 12            # the kernel's PAIRS: pairs staged per sync, and
 BLOCK_THREADS = 64
 VEC_BYTES = 8
 MAX_TEAM = 512        # the kernel's MAX_THREADS
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "layered_spmv.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -135,34 +128,15 @@ def launch_shape(Lp_pad: int, vdtype: torch.dtype,
 
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
-    global _LIB, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(_NVCC_FLAGS).encode()) \
-            .hexdigest()[:12]
-    so = os.path.join(_BUILD_DIR, f"liblayered_spmv_{tag}.so")
-    if not os.path.exists(so):
-        if CUDA_HOME is None:
-            raise RuntimeError("layered_spmv: no CUDA toolkit (nvcc) found")
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [os.path.join(CUDA_HOME, "bin", "nvcc"), *_NVCC_FLAGS,
-             "-o", tmp, _SRC], capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"layered_spmv: nvcc failed\n{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    lib.layered_spmv.restype = ctypes.c_int
-    lib.layered_spmv.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.POINTER(_Params)]
-    _LIB = lib
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib, = nvcc.build("layered_spmv")
+        lib.layered_spmv.restype = ctypes.c_int
+        lib.layered_spmv.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.POINTER(_Params)]
+        _LIB = lib
+    return _LIB
 
 
 class LayeredOperand:

@@ -105,16 +105,14 @@ class SolverConfig:
     # "on" (or "auto" with a float32 solve) raises NotImplementedError.
     refine: str = "auto"
     # layered-operator preconditioners (solve/driver.py::_layered_pc):
-    # "mg_cheby[<degree>][_bf16]" = aggregation multigrid V-cycle with a
-    # Chebyshev-Jacobi smoother (solve/mg.py), anything else = node-block
-    # Jacobi.  pc drives the LINEAR (Stokes) solve; pc_newton drives the
-    # Newton stages.
-    # DELIBERATE difference from the JAX package, whose Stokes solve uses
-    # the plane-Gauss-Seidel V-cycle (pc="mg"): plane GS is not ported,
-    # so the Stokes solve runs the same Chebyshev V-cycle as Newton.  The
-    # Stokes field is only Newton's initial guess, so the converged
-    # Navier-Stokes field is the same to solver tolerance.
-    pc: str = "mg_cheby_bf16"
+    # "mg[_<smoother>][<degree>][w][_bf16]" = aggregation multigrid
+    # (solve/mg.py; "mg" alone is the plane-Gauss-Seidel V-cycle,
+    # "mg_cheby_bf16" the Chebyshev-Jacobi one on bf16 values),
+    # "plane_gs[_bf16]", "zebra[_bf16]", "line_cr[_bf16]",
+    # "plane_gs_grouped" = those relaxations alone, anything else =
+    # node-block Jacobi.  pc drives the LINEAR (Stokes) solves; pc_newton
+    # drives the Newton stages.
+    pc: str = "mg"
     pc_newton: str = "mg_cheby_bf16"
     mg_levels: int = 3
 

@@ -20,7 +20,8 @@ route, replicating reference NavierStokesChannelFlow.py:468-549
 from a previous Re's fine solution on the same (image, lc).
 
 Meshing, BCs and interpolation are host numpy; every solve runs on the
-given torch device.  The Stokes solve uses the Chebyshev V-cycle (see
+given torch device.  The Stokes solve uses the plane-Gauss-Seidel
+V-cycle and Newton the Chebyshev one, as in the JAX package (see
 ``config.SolverConfig.pc``); the double-float refinement is not ported.
 """
 

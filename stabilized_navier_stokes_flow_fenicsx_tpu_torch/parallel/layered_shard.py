@@ -368,7 +368,7 @@ def sharded_newton_layered(
         def make_pc(values):
             return make_mg_pc(hier, values, arrays.cols, arrays.row_ids,
                               arrays.row_ptr, arrays.diag_pos, mask_s, n2d,
-                              Lq, fine=fine)
+                              Lq, smoother="cheby", fine=fine)
     elif pc == "jacobi":
         def make_pc(values):
             return block_jacobi(layered_diag_blocks(arrays, n2d, values),

@@ -24,49 +24,75 @@ from ..assemble.layered import (
     matrix_values_layered, residual_layered)
 from .krylov import KrylovResult, cg, fgmres
 from .newton import NewtonResult, newton_solve
-from .precond import block_jacobi
+from .precond import (block_jacobi, line_cr_layered, plane_gs_grouped,
+                      plane_gs_layered, plane_zebra_layered)
 
 
 def parse_mg_pc(pc: str):
-    """Parse ``mg_cheby[<degree>][_bf16]`` into (cheby_degree, dtype);
-    e.g. mg_cheby_bf16, mg_cheby4_bf16.  The default degree is 6.
+    """Parse an mg PC name into (smoother, cheby_degree, cycle, dtype).
+
+    Grammar: ``mg[_<smoother>][<cheby_degree>][w][_bf16]``, e.g. mg (the
+    plane-GS V-cycle), mg_cheby_bf16, mg_cheby4_bf16 (degree-4
+    Chebyshev), mg_chebyw_bf16 (W-cycle).  The default degree is 6.
     Returns None for any other name."""
-    m = re.fullmatch(r"mg_cheby(\d*)(_bf16)?", pc)
+    m = re.fullmatch(
+        r"mg(?:_(jacobi|cheby|grouped|lined|linej|line|zebra))?"
+        r"(\d*)(w?)(_bf16)?", pc)
     if m is None:
         return None
-    return (int(m.group(1)) if m.group(1) else 6,
-            torch.bfloat16 if m.group(2) else None)
+    return (m.group(1) or "plane_gs",
+            int(m.group(2)) if m.group(2) else 6,
+            "w" if m.group(3) else "v",
+            torch.bfloat16 if m.group(4) else None)
 
 
 def _layered_pc(pc, arrays: LayeredArrays, n2d, n_planes, mask, mg=None):
     """PC factory for the layered operator: values -> closure.
 
-    'mg_cheby*' names (grammar in ``parse_mg_pc``) -> aggregation
-    multigrid with the Chebyshev smoother (solve/mg.py), which needs the
-    ``mg`` hierarchy; any other non-mg name -> node-block Jacobi.  The
-    JAX package's other multigrid smoothers (plane Gauss-Seidel, zebra,
-    line) are not ported and raise.
+    'mg*' names (grammar in ``parse_mg_pc``) -> aggregation multigrid
+    (solve/mg.py), which needs the ``mg`` hierarchy; 'zebra[_bf16]',
+    'line_cr[_bf16]', 'plane_gs[_bf16]' (4x fewer Krylov iterations than
+    block Jacobi on the channel) and 'plane_gs_grouped' (8 planes
+    jointly) -> those relaxations alone (solve/precond.py); any other name
+    -> node-block Jacobi.
     """
-    if pc.startswith(("mg", "plane_gs", "zebra", "line_")):
-        mg_pat = parse_mg_pc(pc)
-        if mg_pat is None:
-            raise NotImplementedError(
-                f"pc={pc!r}: only the mg_cheby* multigrid is ported")
+    dt = torch.bfloat16 if pc.endswith("_bf16") else None
+    mg_pat = parse_mg_pc(pc)
+    if mg_pat is not None:
         if mg is None:
             raise ValueError(f"pc={pc!r} needs a build_mg_hierarchy result")
         from .mg import make_mg_pc
 
-        degree, dt = mg_pat
+        sm, degree, cyc, dt = mg_pat
 
         def make(values):
             return make_mg_pc(
                 mg, values, arrays.cols, arrays.row_ids, arrays.row_ptr,
                 arrays.diag_pos, mask, n2d, n_planes, pc_dtype=dt,
-                cheby_degree=degree)
-        return make
-
-    def make(values):
-        return block_jacobi(layered_diag_blocks(arrays, n2d, values), mask)
+                smoother=sm, cycle_type=cyc, cheby_degree=degree)
+    elif pc in ("zebra", "zebra_bf16"):
+        def make(values):
+            return plane_zebra_layered(
+                values, arrays.cols, arrays.row_ids, arrays.diag_pos,
+                mask, n2d, n_planes, pc_dtype=dt)
+    elif pc in ("line_cr", "line_cr_bf16"):
+        def make(values):
+            return line_cr_layered(values, arrays.diag_pos, mask, n2d,
+                                   n_planes, pc_dtype=dt)
+    elif pc in ("plane_gs", "plane_gs_bf16"):
+        def make(values):
+            return plane_gs_layered(
+                values, arrays.cols, arrays.row_ids, arrays.diag_pos,
+                mask, n2d, n_planes, pc_dtype=dt, row_ptr=arrays.row_ptr)
+    elif pc == "plane_gs_grouped":
+        def make(values):
+            return plane_gs_grouped(
+                values, arrays.cols, arrays.row_ids, arrays.diag_pos,
+                mask, n2d, n_planes, group=8)
+    else:
+        def make(values):
+            return block_jacobi(layered_diag_blocks(arrays, n2d, values),
+                                mask)
     return make
 
 
@@ -140,7 +166,7 @@ def solve_linear_layered(
     E: int,
     rtol: float,
     restart: int,
-    pc: str = "mg_cheby_bf16",
+    pc: str = "plane_gs",
     mg=None,
 ) -> KrylovResult:
     """Affine form on the layered operator: A = J(0), b = -r(0) with the
@@ -186,7 +212,7 @@ def solve_newton_layered(
     ksp_rtol: float = 1e-8,
     ksp_restart: int = 50,
     ksp_max_restarts: int = 40,
-    pc: str = "mg_cheby_bf16",
+    pc: str = "plane_gs",
     mg=None,
     ksp: str = "fgmres",
 ) -> NewtonResult:

@@ -1,10 +1,10 @@
 """Aggregation multigrid on the layered operator.
 
-Counterpart of the JAX package's ``solve/mg.py`` with the Chebyshev
-smoother and the dense coarse solve (the main path's ``mg_cheby*``
-preconditioners).  The layered operator is (2D cross-section graph) x
-(tridiagonal plane coupling), and that tensor structure survives
-coarsening:
+Counterpart of the JAX package's ``solve/mg.py``: its smoothers (plane
+Gauss-Seidel by default, Jacobi, Chebyshev, zebra, the line solves,
+grouped plane-GS), the V- and W-cycle, and the dense or relaxed coarse
+solve.  The layered operator is (2D cross-section graph) x (tridiagonal
+plane coupling), and that tensor structure survives coarsening:
 
 * 2D: greedy graph aggregation (aggregates of ~4 nodes) — piecewise-
   constant prolongation over node blocks, so the (bs, bs) u/p block
@@ -18,12 +18,14 @@ RAP, the coarse mask marks an aggregate component free iff any member is
 free, and every level's operator acts as P A P + (I - P).
 
 Precision: the V-cycle's value tensors may be stored in ``pc_dtype``
-(bf16 on the main path).  The Chebyshev smoother and its spectral
-estimate run in float32 (mask, iterate and accumulation); the cycle's
-residuals stay in the caller's dtype; the coarsest level is inverted
-densely in float32 and polished by two Newton-Schulz steps.  Every level
-matvec is kernel K1 (assemble/layered_spmv.py) on the card, with the
-level's BC projection fused in.
+(bf16 on the Newton path).  The Jacobi-family smoothers and their
+spectral estimate run in float32 (mask, iterate and accumulation); the
+plane-GS sweep in float32 with bf16 values and float64 with float64 ones
+(solve/plane_gs.py); the cycle's residuals stay in the caller's dtype;
+the coarsest level is inverted densely in float32 and polished by two
+Newton-Schulz steps.  Every level matvec is kernel K1
+(assemble/layered_spmv.py) on the card, with the level's BC projection
+fused in, and every plane-GS sweep kernel K2 (csrc/plane_gs.cu).
 
 Under ranks (parallel/layered_shard.py) level 0 is plane-sharded and the
 coarse levels are replicated: ``SlabFine`` carries what differs there.
@@ -37,6 +39,7 @@ is the single-process V-cycle up to summation order.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -300,40 +303,62 @@ def make_mg_pc(
     mask: torch.Tensor,
     n2d: int,
     n_planes: int,
+    n_coarse_sweeps: int = 4,
     pc_dtype=None,
+    smoother: str = "plane_gs",
+    coarse: str = "dense",
+    dense_cap: int = DENSE_CAP,
+    cycle_type: str = "v",
     cheby_degree: int = 6,
     fine: Optional[SlabFine] = None,
 ) -> Callable:
-    """V-cycle preconditioner closure r -> x.
+    """V-cycle (``cycle_type="w"``: W-cycle) preconditioner closure
+    r -> x for the layered operator.
 
-    Smoother: a degree-q Chebyshev polynomial in D^-1 A over node-block
-    Jacobi, tuned to damp [lmax/alpha, lmax] of the spectrum, with the
-    interval top from ``_lam_max_tail`` times ``CHEBY_SAFETY``; the
-    polynomial is fixed once built, so the smoother is a linear operator.
-    The coarsest level is solved exactly by a dense float32 inverse; a
-    hierarchy whose coarsest level exceeds ``DENSE_CAP`` dofs raises.
-    ``fine``: level 0 is this rank's slab (``SlabFine``); the levels
-    below it and the coarse inverse are the same on every rank."""
+    Smoothers (the JAX package's): 'plane_gs' (default; plane Gauss-Seidel,
+    kernel K2 on the card), 'jacobi' (two damped node-block Jacobi sweeps,
+    omega = 1.4 / (``CHEBY_SAFETY`` times the ``_lam_max_tail``
+    estimate)), 'cheby' (a degree-q Chebyshev polynomial in D^-1 A over
+    node-block Jacobi, damping [lmax/alpha, lmax] with lmax the
+    ``_lam_max_tail`` estimate times ``CHEBY_SAFETY``; fixed once built, so
+    a linear operator), 'zebra' (red-black planes, one sweep), 'line' /
+    'lined' (the vertical-line solve by cyclic reduction, undamped / damped
+    0.7), 'linej' (the line solve then a damped node-block Jacobi pass),
+    'grouped' (plane-GS over groups of 8 planes).  ``CHEBY_ALPHA`` and
+    ``CHEBY_SAFETY`` are constants: the JAX package's ``SNS_CHEBY_*``
+    environment overrides are not ported.
+
+    coarse='dense': the coarsest level is solved exactly by a dense
+    float32 inverse when it has at most ``dense_cap`` dofs; otherwise (or
+    with any other ``coarse``) it is relaxed with its smoother,
+    ``n_coarse_sweeps`` times.  ``fine``: level 0 is this rank's slab
+    (``SlabFine``); the levels below it and the coarse solve are the same
+    on every rank; it takes the 'cheby' V-cycle only, as the JAX
+    package's sharded path uses."""
+    from .precond import (line_cr_layered, plane_gs_grouped,
+                          plane_gs_layered, plane_zebra_layered)
+
     bs = values.shape[0]
     f32 = torch.float32
+    if fine is not None and (smoother != "cheby" or cycle_type != "v"):
+        raise ValueError(f"a plane-sharded V-cycle takes smoother='cheby' "
+                         f"and cycle_type='v', not {smoother!r} and "
+                         f"{cycle_type!r}")
     ops = galerkin_levels(hierarchy, values, cols, row_ids, row_ptr,
                           diag_pos, mask, n2d, n_planes, fine)
     top = ops[-1]
     if fine is not None and len(ops) == 1:
         raise ValueError("a plane-sharded V-cycle needs a coarse level")
-    if top.n2d * top.n_planes * bs > DENSE_CAP:
-        raise ValueError(
-            f"coarsest level has {top.n2d * top.n_planes * bs} dofs, more "
-            f"than the dense coarse solve takes ({DENSE_CAP}): build the "
-            f"hierarchy with more levels")
-    coarse_apply = _dense_coarse_inverse(top)
+    coarse_apply = None
+    if coarse == "dense" and top.n2d * top.n_planes * bs <= dense_cap:
+        coarse_apply = _dense_coarse_inverse(top)
 
     smoothers = []
     matvecs = []
     for k, op in enumerate(ops):
         # K1's operand: the V-cycle streams its values in pc_dtype (half
         # the bytes in bf16; the cast rides the layout copy), masked; it
-        # serves f64 residuals (mv) and the f32 smoother (mv32) alike
+        # serves f64 residuals and the f32 Jacobi-family smoothers alike
         sharded = fine is not None and k == 0
         if sharded:
             mv = fine.operand(op.values, pc_dtype)
@@ -341,35 +366,50 @@ def make_mg_pc(
             mv = LayeredOperand(op.values, op.cols, op.row_ptr, op.n2d,
                                 mask=op.mask, dtype=pc_dtype)
         matvecs.append(mv)
+        # the smoothers' values: the level's in pc_dtype, as the JAX
+        # package casts them before building its smoothers
+        Vk = op.values if pc_dtype is None else op.values.to(pc_dtype)
+        args = (Vk, op.cols, op.row_ids, op.diag_pos, op.mask, op.n2d,
+                op.n_planes)
+
         mk32 = mv.masks[f32]
-
-        d = op.values[:, :, 1, op.diag_pos, :]
-        if pc_dtype is not None:
-            d = d.to(pc_dtype)
-        blocks = d.permute(3, 2, 0, 1).reshape(-1, bs, bs)
-        Dinv = block_jacobi(blocks.to(f32), mk32)
-        ub = CHEBY_SAFETY * torch.clamp_min(
-            _lam_max_tail(Dinv, mv, mk32,
-                          reduce=fine.reduce if sharded else None), 1e-6)
-        lb = ub / CHEBY_ALPHA
-        theta = 0.5 * (ub + lb)
-        delta = 0.5 * (ub - lb)
-        sigma = theta / delta
-
-        def sm(r, Dinv=Dinv, mv32=mv, theta=theta, delta=delta,
-               sigma=sigma, q=cheby_degree):
-            rf = r.to(f32)
-            x = Dinv(rf) / theta
-            dx = x
-            rho = 1.0 / sigma
-            for _ in range(q - 1):
-                res = rf - mv32(x)
-                rho_new = 1.0 / (2.0 * sigma - rho)
-                dx = (rho_new * rho) * dx \
-                    + (2.0 * rho_new / delta) * Dinv(res)
-                x = x + dx
-                rho = rho_new
-            return x.to(r.dtype)
+        if smoother in ("jacobi", "cheby"):
+            Dinv = _node_jacobi32(Vk, op.diag_pos, mk32)
+            ub = CHEBY_SAFETY * torch.clamp_min(
+                _lam_max_tail(Dinv, mv, mk32,
+                              reduce=fine.reduce if sharded else None), 1e-6)
+            if smoother == "jacobi":
+                # omega scaled to the measured spectrum: 1.4 / ub is the
+                # classical 0.7 at benign states (ub ~ 2) and stays stable
+                # where the spectrum reaches further
+                sm = functools.partial(_jacobi_sweeps, Dinv, mv, 1.4 / ub)
+            else:
+                sm = functools.partial(_chebyshev, Dinv, mv, ub,
+                                       cheby_degree)
+        elif smoother == "zebra":
+            sm = plane_zebra_layered(*args, zebra_sweeps=1,
+                                     pc_dtype=pc_dtype)
+        elif smoother == "linej":
+            # the line solve owns the streamwise coupling, the Jacobi
+            # pass damps the in-plane modes it ignores
+            base = line_cr_layered(Vk, op.diag_pos, op.mask, op.n2d,
+                                   op.n_planes, pc_dtype=pc_dtype)
+            sm = functools.partial(_line_jacobi, base,
+                                   _node_jacobi32(Vk, op.diag_pos, mk32),
+                                   mv, 0.7)
+        elif smoother in ("line", "lined"):
+            base = line_cr_layered(Vk, op.diag_pos, op.mask, op.n2d,
+                                   op.n_planes, pc_dtype=pc_dtype)
+            sm = base if smoother == "line" else \
+                functools.partial(_damped, base, 0.7)
+        elif smoother == "grouped":
+            sm = plane_gs_grouped(*args, group=8, pc_dtype=pc_dtype)
+        elif smoother == "plane_gs":
+            sm = plane_gs_layered(*args, pc_dtype=pc_dtype,
+                                  row_ptr=op.row_ptr)
+        else:
+            raise ValueError(f"smoother={smoother!r}: expected one of "
+                             f"{SMOOTHERS}")
         smoothers.append(sm)
 
     def restrict(k, r):
@@ -386,10 +426,21 @@ def make_mg_pc(
 
     def cycle(k, r):
         if k == len(ops) - 1:
-            return coarse_apply(r)
+            if coarse_apply is not None:
+                return coarse_apply(r)
+            x = smoothers[k](r)
+            for _ in range(n_coarse_sweeps - 1):
+                x = x + smoothers[k](r - matvecs[k](x))
+            return x
         x = smoothers[k](r)                       # pre-smooth
         res = r - matvecs[k](x)
-        x = x + prolong(k, cycle(k + 1, restrict(k, res)))
+        rc = restrict(k, res)
+        xc = cycle(k + 1, rc)
+        if cycle_type == "w" and k + 1 < len(ops) - 1:
+            # W-cycle: a second coarse correction on the remaining
+            # coarse-level residual
+            xc = xc + cycle(k + 1, rc - matvecs[k + 1](xc))
+        x = x + prolong(k, xc)
         x = x + smoothers[k](r - matvecs[k](x))   # post-smooth
         return x
 
@@ -397,6 +448,53 @@ def make_mg_pc(
         return cycle(0, r)
 
     return apply
+
+
+SMOOTHERS = ("plane_gs", "jacobi", "cheby", "zebra", "linej", "line",
+             "lined", "grouped")
+
+
+def _node_jacobi32(Vk, diag_pos, mk32):
+    """Node-block Jacobi of a level's values, its inverses in float32."""
+    bs = Vk.shape[0]
+    d = Vk[:, :, 1, diag_pos, :].permute(3, 2, 0, 1).reshape(-1, bs, bs)
+    return block_jacobi(d.to(torch.float32), mk32)
+
+
+def _jacobi_sweeps(Dinv, mv, omega, r):
+    """Two damped node-block Jacobi sweeps from 0."""
+    x = omega * Dinv(r)
+    return x + omega * Dinv(r - mv(x))
+
+
+def _chebyshev(Dinv, mv32, ub, q, r):
+    """The degree-q Chebyshev polynomial in D^-1 A on [ub / alpha, ub],
+    in float32."""
+    lb = ub / CHEBY_ALPHA
+    theta = 0.5 * (ub + lb)
+    delta = 0.5 * (ub - lb)
+    sigma = theta / delta
+    rf = r.to(torch.float32)
+    x = Dinv(rf) / theta
+    dx = x
+    rho = 1.0 / sigma
+    for _ in range(q - 1):
+        res = rf - mv32(x)
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        dx = (rho_new * rho) * dx + (2.0 * rho_new / delta) * Dinv(res)
+        x = x + dx
+        rho = rho_new
+    return x.to(r.dtype)
+
+
+def _line_jacobi(base, Dinv, mv, omega, r):
+    """A damped line solve, then a damped node-block Jacobi correction."""
+    x = omega * base(r)
+    return x + omega * Dinv(r - mv(x))
+
+
+def _damped(base, omega, r):
+    return omega * base(r)
 
 
 def _dense_coarse_inverse(op: LevelOperator):

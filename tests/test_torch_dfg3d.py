@@ -12,7 +12,7 @@
   discrete problem; its progress lines keep the JAX app's format;
 * the hierarchy's two ends: at scale 2.0 one coarsening reaches the
   dense solve; a hierarchy whose coarsest level is too large for the
-  dense solve raises instead of relaxing;
+  dense solve relaxes it, as the JAX package does;
 * without a card and without ``device="cpu"`` both entry points raise.
 """
 
@@ -91,9 +91,47 @@ def test_fine_rungs_and_progress_lines(fine):
         assert re.fullmatch(pat, ln), ln
 
 
-def test_coarsest_level_beyond_the_dense_solve_raises():
-    with pytest.raises(ValueError, match="coarsest level"):
-        dfg3d.solve_dfg3d_fine(1.0, mg_levels=0, device="cpu")
+def test_coarsest_level_beyond_the_dense_solve_raises(monkeypatch):
+    """A hierarchy whose coarsest level is too large for the dense solve
+    (scale 2.0, no coarsening, ``dense_cap`` below its dofs): the dense
+    solve is refused and, as in the JAX package, the level is relaxed
+    with its smoother ``n_coarse_sweeps`` times.  One apply of the
+    V-cycle on the pillar's Navier-Stokes Jacobian at the BC lift against
+    the JAX package's (Chebyshev smoother in f32 on both sides: 1e-5)."""
+    import jax
+    import jax.numpy as jnp
+
+    from stabilized_navier_stokes_flow_fenicsx_tpu.solve import (
+        mg as jax_mg)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
+        matrix_values_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
+        make_ns_sups_kernel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import mg
+
+    def no_dense(op):
+        raise AssertionError("the dense coarse solve was built")
+
+    monkeypatch.setattr(mg, "_dense_coarse_inverse", no_dense)
+    _, _, lp, mask, g, hier, _ = dfg3d._fine_setup(2.0, 1.0, 0.3, 0, "cpu")
+    a = lp.arrays
+    assert not hier.levels
+    cap = lp.ndofs - 1
+    V = matrix_values_layered(
+        make_ns_sups_kernel("tetrahedron", nu=dfg3d.NU,
+                            transposed_stab=False),
+        lp.E, lp.n_planes, lp.bs, a, g)
+    r = np.random.default_rng(2).standard_normal(lp.ndofs)
+    x = mg.make_mg_pc(hier, V, a.cols, a.row_ids, a.row_ptr, a.diag_pos,
+                      mask, lp.n2d, lp.n_planes, smoother="cheby",
+                      dense_cap=cap)(torch.as_tensor(r))
+    x_ref = jax.jit(lambda v, b: jax_mg.make_mg_pc(
+        jax_mg.MGHierarchy(levels=(), dims=()), v,
+        jnp.asarray(a.cols.numpy()), jnp.asarray(a.row_ids.numpy()),
+        jnp.asarray(a.diag_pos.numpy()), jnp.asarray(mask.numpy()),
+        lp.n2d, lp.n_planes, smoother="cheby", dense_cap=cap)(b))(
+            jnp.asarray(V.numpy()), jnp.asarray(r))
+    assert torch.isfinite(x).all() and rel_l2(x, x_ref) <= 1e-5
 
 
 @pytest.mark.parametrize("fn", [dfg3d.solve_dfg3d, dfg3d.solve_dfg3d_fine])

@@ -1,7 +1,9 @@
-"""The port's plane-sharded layered path (parallel/layered_shard.py) on
-several gloo ranks, against the JAX package and the port's single-process
-solves.  Float64 on the CPU; the rank processes run
-tests/torch_dist_cases.py.
+"""The port's plane-sharded layered path (parallel/layered_shard.py): its
+tables and slab assembly on several gloo ranks, against the JAX package.
+Float64 on the CPU; the rank processes run tests/torch_dist_cases.py.
+The sharded Newton solves are in tests/test_torch_layered_shard_duct.py
+and tests/test_torch_layered_shard_channel.py (one file each, so that
+the test run's workers take them side by side).
 
 * ``padded_planes``, ``pad_mask_g``, ``build_slab_layered``: equal to the
   JAX package's on the same mesh (tables ``np.array_equal``, ``meta``
@@ -11,95 +13,30 @@ tests/torch_dist_cases.py.
   package's single-device ``residual_layered``, ``matrix_values_layered``
   and projected ``layered_matvec``, relative 1e-12; each rank's cell count
   is the slab partition's ``meta["counts"]``;
-* ``sharded_newton_layered`` with ``pc="jacobi"`` and ``pc="mg"``: against
-  the port's single-process solve (block-CSR Newton on the duct,
-  ``solve_newton_layered`` with ``mg_cheby`` on the CHANNEL mesh) and
-  against the JAX package's ``sharded_newton_layered`` on as many devices,
-  relative L2 < 1e-8 with equal Newton step counts; padded-plane dofs
-  exactly 0 (under the V-cycle on the CHANNEL mesh: 0 to 1e-14 of the
-  largest dof).
+* without a process group the entry point is the single-process solve.
 """
 
 import pytest
 
 pytest.importorskip("jax")
 
-import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from jax.sharding import Mesh  # noqa: E402
 
 from stabilized_navier_stokes_flow_fenicsx_tpu.assemble import (  # noqa: E402
     layered as jax_layered)
 from stabilized_navier_stokes_flow_fenicsx_tpu.parallel import (  # noqa: E402
     layered_shard as jax_shard)
-from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.assembly import (  # noqa: E402
-    assembler_for_mixed)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (  # noqa: E402
     build_layered, matrix_values_layered)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.parallel import (  # noqa: E402
     layered_shard)
-from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (  # noqa: E402
-    solve_newton_bcsr, solve_newton_layered)
-from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (  # noqa: E402
-    build_mg_hierarchy)
 
-import test_layered_shard as jax_cases  # noqa: E402
-from parity_fixtures import CHANNEL  # noqa: E402
-from torch_cases import channel_image, rel_l2  # noqa: E402
-from torch_dist_cases import (channel_problem, duct_problem,  # noqa: E402
-                              padded_pattern, run_ranks)
-
-TOLS = dict(rtol=1e-12, atol=1e-12, max_it=30, ksp_rtol=1e-10)
-RANKS = (2, 4)
-
-
-@pytest.fixture(scope="module")
-def img(tmp_path_factory):
-    return channel_image(tmp_path_factory.mktemp("layered_shard"))
-
-
-def _params(geometry, img):
-    if geometry == "duct":
-        return dict(geometry="duct", n_cross=6, n_axial=13, Re=20.0)
-    return dict(geometry="channel", img=img, lc=CHANNEL["lc"],
-                Re=CHANNEL["Re"])
-
-
-@pytest.fixture(scope="module")
-def problems(img):
-    """{geometry: (JAX problem, port problem)}: (mesh, W, mask, g, kernel)
-    of each package, built from the same parameters."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu.config import DEFAULT
-    from stabilized_navier_stokes_flow_fenicsx_tpu.fem.bc import (
-        DirichletBC, bc_mask, bc_vector, combine_bcs)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.fem.space import (
-        make_mixed_space)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.flow.channel import (
-        channel_bcs, generate_channel_mesh)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.flow.inlet import (
-        solve_inlet_profiles)
-    from stabilized_navier_stokes_flow_fenicsx_tpu.forms.navier_stokes import (
-        make_ns_sups_kernel)
-
-    inlet1, inlet2 = solve_inlet_profiles(img, CHANNEL["ratio"], DEFAULT)
-    mesh, _, _ = generate_channel_mesh(img, CHANNEL["lc"], DEFAULT,
-                                       layered=True)
-    W = make_mixed_space(mesh, 1, 1)
-    _n2d, _Lp, used = mesh.layered
-    unused = np.nonzero(~used)[0].astype(np.int64)
-    unused_dofs = (unused[:, None] * 4 + np.arange(4)[None, :]).ravel()
-    bc = combine_bcs([DirichletBC(unused_dofs, np.zeros(len(unused_dofs))),
-                      channel_bcs(mesh, W, inlet1, inlet2)])
-    jax_channel = (mesh, W, bc_mask(W.ndofs, bc).astype(np.float64),
-                   bc_vector(W.ndofs, bc),
-                   make_ns_sups_kernel("tetrahedron",
-                                       nu=1.0 / CHANNEL["Re"]))
-    return dict(
-        duct=(jax_cases._duct_layered(), duct_problem()),
-        channel=(jax_channel,
-                 channel_problem(img, CHANNEL["lc"], CHANNEL["Re"])))
+from torch_cases import rel_l2  # noqa: E402
+from torch_dist_cases import padded_pattern, run_ranks  # noqa: E402
+from torch_shard_cases import (RANKS, TOLS, _params, img,  # noqa: E402,F401
+                               problems)
 
 
 def test_same_problem_in_both_packages(problems):
@@ -219,108 +156,6 @@ def test_slab_assembly_matches_single_process(
     assert int(res[0]["counts"].sum()) == tm.n_cells
     assert int(res[0]["counts"].max()) <= tm.n_cells / D \
         + 2 * tm.n_cells / (Lp - 1)
-
-
-@pytest.fixture(scope="module")
-def duct_single_process(problems):
-    """The port's single-process Newton on the duct (block-CSR, node-block
-    Jacobi) at the sharded tests' tolerances."""
-    _, W, mask, g, kern = problems["duct"][1]
-    asm = assembler_for_mixed(W, device="cpu")
-    pat = asm.pattern
-    out = solve_newton_bcsr(
-        kern, asm.ndofs, pat.nnzb, pat.bs, pat.n_rows, asm.arrays,
-        asm.vector(mask), asm.vector(g), asm.vector(g), **TOLS)
-    assert out.converged
-    return out
-
-
-@pytest.mark.parametrize("D", RANKS)
-@pytest.mark.parametrize("pc", ["jacobi", "mg"])
-def test_plane_sharded_duct(problems, duct_single_process, tmp_path, pc, D):
-    (jm, jW, jmask, jg, jkern), _ = problems["duct"]
-    res = run_ranks("layered_newton", D, tmp_path,
-                    dict(geometry="duct", n_cross=6, n_axial=13, Re=20.0,
-                         pc=pc, mg_levels=2, tols=TOLS))
-    nd = jW.ndofs
-    n2d, Lp, _ = jm.layered
-    Lp_pad = layered_shard.padded_planes(Lp, D)
-    for o in res:
-        assert bool(o["converged"])
-        assert int(o["n_local"]) == n2d * Lp_pad * 4 // D
-        assert np.array_equal(o["x"], res[0]["x"])
-    x = res[0]["x"]
-    assert x.shape == (n2d * Lp_pad * 4,)
-    assert rel_l2(x[:nd], duct_single_process.x) < 1e-8
-    # padded-plane dofs stayed at their identity value 0
-    assert np.abs(x[nd:]).max(initial=0.0) == 0.0
-
-    # the JAX package's sharded solve on as many devices
-    dmesh = Mesh(np.array(jax.devices()[:D]), ("planes",))
-    jlp = jax_layered.build_layered(jW, n2d, Lp_pad)
-    mask_p, g_p = jax_shard.pad_mask_g(jmask, jg, n2d * Lp_pad * jlp.bs)
-    ref = jax_shard.sharded_newton_layered(
-        jkern, jlp, mask_p, g_p, g_p, dmesh, pc=pc, mg_levels=2, **TOLS)
-    assert bool(ref.converged)
-    assert int(res[0]["iters"]) == int(ref.iters)
-    assert rel_l2(x, ref.x) < 1e-8
-    its_ref = np.asarray(ref.history)[:int(ref.iters), 2]
-    assert np.abs(res[0]["history"][:, 2] - its_ref).max() <= 1
-
-
-@pytest.fixture(scope="module")
-def channel_single_process(problems):
-    """The port's single-process ``mg_cheby`` Newton on the CHANNEL mesh
-    (structured assembly, the whole V-cycle in one process)."""
-    tm, tW, mask, g, kern = problems["channel"][1]
-    n2d, Lp, _ = tm.layered
-    lp1 = build_layered(tW, n2d, Lp, device="cpu")
-    hier = build_mg_hierarchy(lp1.rows2d, lp1.cols2d, n2d, Lp,
-                              mask.astype(np.float32), lp1.bs, n_levels=2,
-                              device="cpu")
-    g_t = torch.as_tensor(g)
-    out1 = solve_newton_layered(
-        kern, n2d, Lp, lp1.bs, lp1.arrays, torch.as_tensor(mask), g_t, g_t,
-        lp1.E, 1e-12, 1e-12, 30, 1e-10, 50, 40, "mg_cheby", hier)
-    assert out1.converged
-    return out1
-
-
-@pytest.mark.parametrize("D", RANKS)
-def test_plane_sharded_mg_channel(problems, channel_single_process, img,
-                                  tmp_path, D):
-    """pc="mg" on the CHANNEL mesh (splitter, unused-node rows, inlet
-    profiles) against the port's single-process ``mg_cheby`` solve and
-    the JAX package's sharded solve."""
-    tm, tW, mask, g, kern = problems["channel"][1]
-    out1 = channel_single_process
-    res = run_ranks("layered_newton", D, tmp_path,
-                    dict(pc="mg", mg_levels=2, tols=TOLS,
-                         **_params("channel", img)))
-    o = res[0]
-    assert bool(o["converged"]) and int(o["iters"]) == out1.iters
-    assert rel_l2(o["x"][:tW.ndofs], out1.x) < 1e-8
-    # the V-cycle's prolongation pairs the first padded plane with the last
-    # real one, so FGMRES pins the padded dofs to 0 only to its tolerance
-    # (the exact 0 is the Jacobi case's, as in the JAX package's tests)
-    assert np.abs(o["x"][tW.ndofs:]).max(initial=0.0) \
-        <= 1e-14 * np.abs(o["x"]).max()
-    assert np.abs(o["history"][:, 2] - out1.history[:, 2]).max() <= 1
-
-    # the JAX package's sharded V-cycle solve on as many devices
-    (jm, jW, jmask, jg, jkern), _ = problems["channel"]
-    n2d, Lp, _ = jm.layered
-    Lp_pad = layered_shard.padded_planes(Lp, D)
-    dmesh = Mesh(np.array(jax.devices()[:D]), ("planes",))
-    jlp = jax_layered.build_layered(jW, n2d, Lp_pad)
-    mask_p, g_p = jax_shard.pad_mask_g(jmask, jg, n2d * Lp_pad * jlp.bs)
-    ref = jax_shard.sharded_newton_layered(
-        jkern, jlp, mask_p, g_p, g_p, dmesh, pc="mg", mg_levels=2, **TOLS)
-    assert bool(ref.converged)
-    assert int(o["iters"]) == int(ref.iters)
-    assert rel_l2(o["x"], ref.x) < 1e-8
-    its_ref = np.asarray(ref.history)[:int(ref.iters), 2]
-    assert np.abs(o["history"][:, 2] - its_ref).max() <= 1
 
 
 def test_single_process_without_a_group(problems):
