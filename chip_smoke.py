@@ -126,8 +126,11 @@
    its two type pairs (f64 values and iterate: ``pc="mg"``; bf16 values,
    f32 iterate: ``mg_bf16``); its time with L2 flushed, its bound (bytes
    over 3.35 TB/s, or its FLOP where they take longer) and the plain
-   version's time.  No PyTorch call computes a plane-GS sweep, so it has
-   no library time.  Then ``solve_linear_layered`` on that channel's
+   version's time; per level its launch plan (the cluster size, threads,
+   shared memory a block, value ring or values from memory), its stages
+   and time per stage, beside the time of the same cluster running the
+   stage barriers alone (the chain's floor).  No PyTorch call computes a
+   plane-GS sweep, so it has no library time.  Then ``solve_linear_layered`` on that channel's
    Stokes system with ``pc="mg_cheby_bf16"``, ``"mg"`` and ``"mg_bf16"``:
    all converged, the two plane-GS solves within rel-L2 1e-6 of the
    Chebyshev one, each launching K2 for its pair; prints FGMRES counts,
@@ -143,9 +146,10 @@
    ``ms_dfg3d``, ``bound_ms_dfg3d``: level 0 of the pillar operator,
    masked, flushed; ``ms_slab``, ``bound_ms_slab``: the slab operand of
    phase 14, likewise; for K2: the largest error over phase 15's levels
-   and states, the times and bound at level 0 of the Stokes matrix, the
-   launches of phase 3 for f64 and of phase 15's ``mg_bf16`` solve for
-   bf16), then the final JSON status line.
+   and states, the times and bound at level 0 of the Stokes matrix,
+   ``cluster`` and ``barrier_chain_ms`` there, the launches of phase 3
+   for f64 and of phase 15's ``mg_bf16`` solve for bf16), then the final
+   JSON status line.
    The trace, the block-CSR path and the host-LU path run no
    hand-written kernel, so they add no entry.
 
@@ -1349,17 +1353,12 @@ def k2_bound(op):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def run_plane_gs(torch, np, img, device):
-    """Phase 15: K2 against its plain version on every smoothed V-cycle
-    level of the lc=0.04 channel, at the Stokes matrix J(0) and at the NS
-    Jacobian of the stored solution, for both type pairs, with its
-    yardsticks; then the Stokes solve with pc="mg" and "mg_bf16" against
-    the "mg_cheby_bf16" one.  Returns (checks by pair, K2 launches of the
-    mg_bf16 solve by pair)."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
-        matrix_values_layered)
+def k2_problem(torch, np, img, device):
+    """The lc=0.04 channel's layered set-up with its multigrid hierarchy
+    and the Stokes and NS kernels: what phase 15 and profile_torch_k2.py
+    build K2's levels from."""
+    from types import SimpleNamespace
+
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
         _setup_layered, generate_channel_mesh)
@@ -1369,32 +1368,74 @@ def run_plane_gs(torch, np, img, device):
         make_ns_sups_kernel)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.stokes import (
         make_stokes_kernel)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
-        solve_linear_layered)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
-        galerkin_levels)
 
-    t0 = time.perf_counter()
     inlet1, inlet2 = solve_inlet_profiles(img, RATIO, DEFAULT)
     mesh, _, _ = generate_channel_mesh(img, LC, DEFAULT)
     st = _setup_layered(mesh, inlet1, inlet2, torch.float64,
                         DEFAULT.solver.mg_levels, device)
-    lp, a = st.lp, st.lp.arrays
     stokes_k = make_stokes_kernel(
         "tetrahedron", nu=1.0, mu_T_coeff=DEFAULT.stab.stokes_mu_T_coeff)
     ns_k = make_ns_sups_kernel("tetrahedron", nu=1.0 / RE,
                                C_I=DEFAULT.stab.C_I)
-    states = (("Stokes J(0)", stokes_k, torch.zeros_like(st.mask)),
-              ("NS J(w*)", ns_k,
-               torch.as_tensor(np.load(FIXTURE)["w"], device=device)))
+    states = {"Stokes J(0)": (stokes_k, torch.zeros_like(st.mask)),
+              "NS J(w*)": (ns_k, torch.as_tensor(np.load(FIXTURE)["w"],
+                                                 device=device))}
+    return SimpleNamespace(st=st, stokes_k=stokes_k, states=states)
+
+
+def k2_levels(problem, state: str):
+    """The Galerkin levels (solve/mg.py::LevelOperator) of ``problem`` at
+    ``state`` ("Stokes J(0)" or "NS J(w*)"); K2 smooths all but the
+    coarsest."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
+        matrix_values_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
+        galerkin_levels)
+
+    st = problem.st
+    lp, a = st.lp, st.lp.arrays
+    kern, w = problem.states[state]
+    vals = matrix_values_layered(kern, lp.E, lp.n_planes, lp.bs, a, w)
+    return galerkin_levels(st.mg, vals, a.cols, a.row_ids, a.row_ptr,
+                           a.diag_pos, st.mask, lp.n2d, lp.n_planes)
+
+
+def k2_plan_line(K, ms: float, chain_ms: float) -> str:
+    """Phase 15's account of one K2 operand's launch plan and its time per
+    stage beside the floor of its barrier chain."""
+    p = K.plan
+    return (f"cluster {p.cluster} x {p.threads} threads (split {p.split}), "
+            f"{p.smem_bytes} B shared memory a block, "
+            f"{'value ring ' + str(p.slots) if p.staged else 'values from memory'}"
+            f"; {K.stages} stages, {ms / K.stages * 1e3:.3f} us a stage; "
+            f"the cluster barriers alone {chain_ms:.4f} ms "
+            f"({chain_ms / (K.stages + 1) * 1e3:.3f} us a stage)")
+
+
+def run_plane_gs(torch, np, img, device):
+    """Phase 15: K2 against its plain version on every smoothed V-cycle
+    level of the lc=0.04 channel, at the Stokes matrix J(0) and at the NS
+    Jacobian of the stored solution, for both type pairs, with its
+    yardsticks, its launch plan and its barrier chain's floor; then the
+    Stokes solve with pc="mg" and "mg_bf16" against the "mg_cheby_bf16"
+    one.  Returns (checks by pair, K2 launches of the mg_bf16 solve by
+    pair)."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
+        solve_linear_layered)
+
+    t0 = time.perf_counter()
+    problem = k2_problem(torch, np, img, device)
+    st = problem.st
+    lp, a = st.lp, st.lp.arrays
     flush = L2Flush(torch, device)
     rng = np.random.default_rng(3)
     checks = {p[:2]: dict(errs=[]) for p in K2_PAIRS}
-    for state, kern, w in states:
-        vals = matrix_values_layered(kern, lp.E, lp.n_planes, lp.bs, a, w)
-        levels = galerkin_levels(st.mg, vals, a.cols, a.row_ids, a.row_ptr,
-                                 a.diag_pos, st.mask, lp.n2d, lp.n_planes)
+    for state in problem.states:
+        levels = k2_levels(problem, state)
         print(f"K2 shapes at {state}: (E, Lp, n2d) per smoothed level "
               f"{[(op.values.shape[3], op.n_planes, op.n2d) for op in levels[:-1]]}"
               f" (the coarsest, {levels[-1].n2d * levels[-1].n_planes * 4} "
@@ -1422,6 +1463,7 @@ def run_plane_gs(torch, np, img, device):
                 c = checks[(vname, aname)]
                 c["errs"].append(max_abs)
                 ms = time_flushed_ms(lambda: K(r), flush)
+                chain_ms = time_ms(K.barrier_chain, 10)
                 bound, bound_by = k2_bound(K)
                 line = (f"K2 ({vname} values, {aname} iterate) {state} level "
                         f"{k}: rel-L2 {rel:.3e} (tol {tol:g}), max abs err "
@@ -1435,9 +1477,10 @@ def run_plane_gs(torch, np, img, device):
                         lambda: plane_gs.plane_gs_plain(K, r), 5)
                     line += f", plain {plain_ms:.4f} ms"
                     c.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by=bound_by)
-                print(line, flush=True)
-        del levels, vals
+                             bound_by=bound_by, cluster=K.plan.cluster,
+                             chain_ms=chain_ms)
+                print(f"{line}; {k2_plan_line(K, ms, chain_ms)}", flush=True)
+        del levels
     del flush
     print(f"K2 checks: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -1447,8 +1490,8 @@ def run_plane_gs(torch, np, img, device):
         layered_spmv.reset_launches()
         t0 = time.perf_counter()
         res = solve_linear_layered(
-            stokes_k, lp.n2d, lp.n_planes, lp.bs, a, st.mask, st.g, lp.E,
-            1e-8, DEFAULT.solver.ksp_restart, pc, st.mg)
+            problem.stokes_k, lp.n2d, lp.n_planes, lp.bs, a, st.mask, st.g,
+            lp.E, 1e-8, DEFAULT.solver.ksp_restart, pc, st.mg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[pc] = dict(plane_gs.LAUNCHES_BY_DTYPES)
@@ -1603,6 +1646,8 @@ def main() -> int:
         plain_ms=k2_checks[(vname, aname)]["plain_ms"],
         bound_ms=k2_checks[(vname, aname)]["bound_ms"],
         bound_by=k2_checks[(vname, aname)]["bound_by"],
+        cluster=k2_checks[(vname, aname)]["cluster"],
+        barrier_chain_ms=k2_checks[(vname, aname)]["chain_ms"],
         library_ms=None,
         library="none: no single PyTorch call computes a plane Gauss-Seidel "
                 "sweep")

@@ -21,10 +21,16 @@ sweep, starting each plane's relaxation from its downstream result.
   JAX layout the planes are the fastest axis), optionally in a narrower
   value dtype, with the block inverses (Lp, n2d, bs, bs) in the same
   dtype and the mask in the iterate's.  On a CUDA tensor a call
-  launches ``csrc/plane_gs.cu`` (both directions in one launch; it
-  replaces the ``lax.scan``s of the JAX function, which is jnp code and
-  not a Pallas kernel); on a CPU tensor it runs the plain version on the
-  same prepared operand.  There is no fallback from the kernel.
+  launches ``csrc/plane_gs.cu`` (both directions in one launch of one
+  thread-block cluster; it replaces the ``lax.scan``s of the JAX
+  function, which is jnp code and not a Pallas kernel); on a CPU tensor
+  it runs the plain version on the same prepared operand.  There is no
+  fallback from the kernel.
+* ``make_plan`` is the kernel's launch plan, built on the host once per
+  operand: the cluster size, the 2D rows cut into one contiguous range
+  per block (balanced by pairs), each pair's column coded as (owner
+  block, row within it), the threads per block and the shared-memory
+  layout (``smem_bytes``, the kernel's ``layout()``).
 * ``plane_gs_plain`` is the JAX function's algorithm in PyTorch ops on
   the prepared operand: a loop over planes, ``index_add_`` for
   ``segment_sum``.
@@ -43,8 +49,11 @@ The kernel is built at first use with ``nvcc`` into
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from dataclasses import dataclass, replace
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import nvcc
@@ -53,19 +62,27 @@ LAUNCHES = 0          # kernel launches since import (or the last reset)
 # the same launches by (values dtype, iterate dtype)
 LAUNCHES_BY_DTYPES: Dict[Tuple[torch.dtype, torch.dtype], int] = {}
 
+CLUSTER_SIZES = (1, 2, 4, 8, 16)   # 16 needs the non-portable size
+SMEM_LIMIT = 232_448               # dynamic shared memory a block may take
+MAX_THREADS = 512                  # per block (the kernel's launch bound)
+MAX_SLOTS = 4                      # the value ring's deepest
+
 _BS = 4
 _VTYPE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 _LIB: Optional[ctypes.CDLL] = None
 
 
 class _Params(ctypes.Structure):
-    """The kernel's ``Params``: the prepared operand, fixed per build."""
+    """The kernel's ``Params``: the prepared operand and its plan."""
     _fields_ = [("vals", ctypes.c_void_p), ("dinv", ctypes.c_void_p),
-                ("mask", ctypes.c_void_p), ("cols", ctypes.c_void_p),
-                ("row_ptr", ctypes.c_void_p), ("vtype", ctypes.c_int),
-                ("n2d", ctypes.c_int), ("Lp", ctypes.c_int),
-                ("E", ctypes.c_int), ("inner_sweeps", ctypes.c_int),
-                ("symmetric", ctypes.c_int)]
+                ("mask", ctypes.c_void_p), ("blocks", ctypes.c_void_p),
+                ("row_ptr", ctypes.c_void_p), ("colcode", ctypes.c_void_p),
+                ("vtype", ctypes.c_int), ("n2d", ctypes.c_int),
+                ("Lp", ctypes.c_int), ("E", ctypes.c_int),
+                ("inner_sweeps", ctypes.c_int), ("symmetric", ctypes.c_int),
+                ("cluster", ctypes.c_int), ("split", ctypes.c_int),
+                ("threads", ctypes.c_int), ("max_rows", ctypes.c_int),
+                ("max_pairs", ctypes.c_int), ("slots", ctypes.c_int)]
 
 
 def build() -> ctypes.CDLL:
@@ -73,12 +90,122 @@ def build() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib, = nvcc.build("plane_gs")
+        P = ctypes.POINTER(_Params)
         lib.plane_gs.restype = ctypes.c_int
         lib.plane_gs.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.POINTER(_Params)]
+                                 ctypes.c_void_p, P]
+        lib.plane_gs_max_clusters.restype = ctypes.c_int
+        lib.plane_gs_max_clusters.argtypes = [P]
+        lib.plane_gs_barrier_chain.restype = ctypes.c_int
+        lib.plane_gs_barrier_chain.argtypes = [ctypes.c_void_p, P,
+                                               ctypes.c_int]
         _LIB = lib
     return _LIB
+
+
+def smem_bytes(max_rows: int, max_pairs: int, slots: int, vsize: int,
+               asize: int) -> int:
+    """Dynamic shared memory of one block (csrc/plane_gs.cu's
+    ``layout()``, which sizes the launch): the mbarriers, the block's column codes and row
+    pointers, six iterate buffers, two plane slots (inverses, mask, r)
+    and ``slots`` value slices."""
+    def up16(b):
+        return (b + 15) // 16 * 16
+    return ((MAX_SLOTS + 2) * 8 + up16(4 * max_pairs)
+            + up16(4 * (max_rows + 1)) + 6 * 4 * max_rows * asize
+            + 2 * max_rows * (16 * vsize + 8 * asize)
+            + slots * 16 * vsize * max_pairs)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """K2's launch plan for one operand."""
+    cluster: int            # blocks in the cluster
+    blocks: np.ndarray      # (cluster, 4) int32: row0, row1, pair0, pair1
+    colcode: Optional[np.ndarray]  # (E,) int32: owner block | local
+                                   # row << 4 (None while ranked)
+    split: int              # threads per (row, component)
+    threads: int            # per block
+    max_rows: int
+    max_pairs: int
+    slots: int              # value ring depth; 0 = values from memory
+    smem_bytes: int
+
+    @property
+    def staged(self) -> bool:
+        """Whether the value slices are staged in shared memory."""
+        return self.slots > 0
+
+
+def partition(row_ptr: np.ndarray, cluster: int) -> np.ndarray:
+    """(cluster, 4) int32 (row0, row1, pair0, pair1): the rows cut into
+    ``cluster`` contiguous ranges of about E / cluster pairs each (a
+    range is empty where there are fewer rows than blocks)."""
+    rp = np.asarray(row_ptr, np.int64)
+    n2d, E = len(rp) - 1, int(rp[-1])
+    cuts = np.searchsorted(rp, np.arange(1, cluster) * (E / cluster))
+    b = np.concatenate([[0], np.clip(cuts, 0, n2d), [n2d]])
+    b = np.maximum.accumulate(b)
+    return np.stack([b[:-1], b[1:], rp[b[:-1]], rp[b[1:]]], 1) \
+        .astype(np.int32)
+
+
+def column_codes(blocks: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """(E,) int32: each pair's column as owner block | row within it << 4."""
+    starts = blocks[:, 0].astype(np.int64)
+    cols = np.asarray(cols, np.int64)
+    owner = np.searchsorted(starts, cols, side="right") - 1
+    return (owner | (cols - starts[owner]) << 4).astype(np.int32)
+
+
+def make_plan(row_ptr: np.ndarray, cols: np.ndarray, vsize: int, asize: int,
+              cluster: Optional[int] = None,
+              schedulable: Optional[Callable[[Plan], bool]] = None) -> Plan:
+    """The launch plan for value / iterate element sizes ``vsize`` /
+    ``asize``.  ``cluster`` None: the largest size of ``CLUSTER_SIZES``
+    whose blocks can stage a ring of at least two value slices in shared
+    memory, else the largest that fits with the values read from device
+    memory (on an H100, 16 blocks beat fewer at every level of the
+    lc=0.04 channel: PERF.md, profile_torch_k2.py); a given ``cluster``
+    takes that size.  The ring is as deep as fits, up to ``MAX_SLOTS``;
+    ``split`` (threads per row and component) is the largest that keeps
+    a stage in one pass of ``MAX_THREADS`` threads.  ``schedulable(plan)``
+    (the card's occupancy query, which needs no column codes; None: every
+    plan) rules sizes out.  Raises ValueError for a size outside
+    ``CLUSTER_SIZES`` or one whose blocks do not fit, RuntimeError when no
+    size is schedulable."""
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"plane_gs: cluster must be one of {CLUSTER_SIZES},"
+                         f" got {cluster}")
+    staged, unstaged = [], []
+    for C in (CLUSTER_SIZES if cluster is None else (cluster,)):
+        blocks = partition(row_ptr, C)
+        max_rows = int((blocks[:, 1] - blocks[:, 0]).max())
+        max_pairs = int((blocks[:, 3] - blocks[:, 2]).max())
+        split = next(k for k in (4, 2, 1)
+                     if 4 * max_rows * k <= MAX_THREADS or k == 1)
+        threads = min(MAX_THREADS, max(32, -(-4 * max_rows * split // 32)
+                                       * 32))
+        for slots in (4, 3, 2, 0):
+            nbytes = smem_bytes(max_rows, max_pairs, slots, vsize, asize)
+            if nbytes <= SMEM_LIMIT:
+                plan = Plan(C, blocks, None, split, threads, max_rows,
+                            max_pairs, slots, nbytes)
+                (staged if slots else unstaged).append(plan)
+                break
+    candidates = staged[::-1] + unstaged[::-1]
+    if not candidates:
+        raise ValueError(
+            f"plane_gs: {len(row_ptr) - 1} rows and {int(row_ptr[-1])} "
+            f"pairs do not fit the shared memory of "
+            f"{'a cluster of ' + str(cluster) if cluster else 'any cluster'}"
+            f" ({SMEM_LIMIT} bytes a block)")
+    for plan in candidates:
+        if schedulable is None or schedulable(plan):
+            return replace(plan, colcode=column_codes(plan.blocks, cols))
+    raise RuntimeError(
+        f"plane_gs: no cluster of {[p.cluster for p in candidates]} blocks "
+        f"can be scheduled on this card")
 
 
 class PlaneGSOperand:
@@ -89,14 +216,19 @@ class PlaneGSOperand:
     inverses in it (the inverses are taken from the values in their own
     dtype promoted with the mask's, then cast).  cols (E,) and row_ptr
     (n2d + 1,) are the row-sorted pair list (int64); diag_pos (n2d,) the
-    self-pairs; mask (Lp*n2d*bs,) the 0/1 dof mask.
+    self-pairs; mask (Lp*n2d*bs,) the 0/1 dof mask.  ``cluster`` sets the
+    kernel's cluster size (None: ``make_plan``'s choice); ``plan`` (built
+    on the card with the operand, elsewhere at first use) raises for a
+    size outside ``CLUSTER_SIZES`` or, on the card, one that cannot be
+    scheduled.
     """
 
     def __init__(self, values: torch.Tensor, cols: torch.Tensor,
                  row_ptr: torch.Tensor, diag_pos: torch.Tensor,
                  mask: torch.Tensor, n2d: int, inner_sweeps: int = 2,
                  symmetric: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 cluster: Optional[int] = None):
         from .precond import projected_diag_inverse
 
         if values.dim() != 5 or tuple(values.shape[:3]) != (_BS, _BS, 3):
@@ -122,6 +254,7 @@ class PlaneGSOperand:
                                  f"values on {dev}")
         self.device, self.n2d, self.E, self.Lp = dev, n2d, E, Lp
         self.inner_sweeps, self.symmetric = int(inner_sweeps), bool(symmetric)
+        self.cluster = cluster
         # the iterate and every sum: float64 with float64 values, else
         # float32
         self.vdtype = vdtype
@@ -144,12 +277,50 @@ class PlaneGSOperand:
             self._fn = build().plane_gs
             self._dev_index = dev.index if dev.index is not None \
                 else torch.cuda.current_device()
-            self._pstruct = _Params(
-                self.values.data_ptr(), self.dinv.data_ptr(),
-                self.mask.data_ptr(), self.cols.data_ptr(),
-                self.row_ptr.data_ptr(), _VTYPE[vdtype], n2d, Lp, E,
-                self.inner_sweeps, int(self.symmetric))
-            self._params = ctypes.byref(self._pstruct)
+            plan = self.plan
+            self._tables = (torch.as_tensor(plan.blocks, device=dev),
+                            self.row_ptr.to(torch.int32),
+                            torch.as_tensor(plan.colcode, device=dev))
+            self._pstruct = self._params(plan, self._tables)
+            self._params_ref = ctypes.byref(self._pstruct)
+
+    @functools.cached_property
+    def plan(self) -> Plan:
+        """The kernel's launch plan (built on the CPU too, where nothing
+        launches; on the card only a schedulable plan is taken)."""
+        schedulable = None
+        if self._cuda:
+            lib = build()
+
+            def schedulable(plan):
+                with torch.cuda.device(self._dev_index):
+                    n = lib.plane_gs_max_clusters(
+                        ctypes.byref(self._params(plan)))
+                if n < 0:
+                    raise RuntimeError(f"plane_gs: occupancy query failed "
+                                       f"(cudaError {-n})")
+                return n >= 1
+        return make_plan(self.row_ptr.cpu().numpy(), self.cols.cpu().numpy(),
+                         self.values.element_size(),
+                         self.mask.element_size(), self.cluster, schedulable)
+
+    @property
+    def stages(self) -> int:
+        """Dependent stages of one sweep (each ends in a cluster barrier):
+        the coupling and the inner passes of every plane and direction."""
+        return (2 if self.symmetric else 1) * self.Lp \
+            * (1 + self.inner_sweeps)
+
+    def _params(self, plan: Plan, tables=None) -> _Params:
+        """The kernel's Params for ``plan``; without the device ``tables``
+        (blocks, row_ptr, colcode) only for the occupancy query."""
+        ptrs = [t.data_ptr() for t in tables] if tables else [None] * 3
+        return _Params(
+            self.values.data_ptr(), self.dinv.data_ptr(),
+            self.mask.data_ptr(), *ptrs,
+            _VTYPE[self.vdtype], self.n2d, self.Lp, self.E,
+            self.inner_sweeps, int(self.symmetric), plan.cluster, plan.split,
+            plan.threads, plan.max_rows, plan.max_pairs, plan.slots)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         if not r.is_floating_point() or r.shape != self.shape \
@@ -162,25 +333,42 @@ class PlaneGSOperand:
             return plane_gs_plain(self, r)
         global LAUNCHES
         rr = r.to(self.adtype).contiguous()
+        if rr.data_ptr() % 16:          # the bulk copies want 16 bytes
+            rr = rr.clone()
         x = torch.empty_like(rr)
-        scratch = torch.empty(2 * self.n2d * _BS, dtype=self.adtype,
-                              device=self.device)
         if torch.cuda.current_device() != self._dev_index:
             with torch.cuda.device(self._dev_index):
-                err = self._launch(rr, x, scratch)
+                err = self._launch(rr, x)
         else:
-            err = self._launch(rr, x, scratch)
+            err = self._launch(rr, x)
         if err != 0:
-            raise RuntimeError(f"plane_gs: launch failed (cudaError {err})")
+            raise RuntimeError(
+                f"plane_gs: launch failed (cudaError {err}; cluster of "
+                f"{self.plan.cluster} blocks, {self.plan.threads} threads, "
+                f"{self.plan.smem_bytes} bytes of shared memory each)")
         LAUNCHES += 1
         key = (self.vdtype, self.adtype)
         LAUNCHES_BY_DTYPES[key] = LAUNCHES_BY_DTYPES.get(key, 0) + 1
         return x.to(r.dtype)
 
-    def _launch(self, r, x, scratch) -> int:
-        return self._fn(r.data_ptr(), x.data_ptr(), scratch.data_ptr(),
+    def _launch(self, r, x) -> int:
+        return self._fn(r.data_ptr(), x.data_ptr(),
                         torch._C._cuda_getCurrentRawStream(self._dev_index),
-                        self._params)
+                        self._params_ref)
+
+    def barrier_chain(self) -> None:
+        """Launch the plan's cluster running the sweep's ``stages``
+        cluster barriers and nothing else (the chain's floor; not a K2
+        launch, so not counted)."""
+        if not self._cuda:
+            raise RuntimeError("plane_gs: the barrier chain runs on the card")
+        with torch.cuda.device(self._dev_index):
+            err = build().plane_gs_barrier_chain(
+                torch._C._cuda_getCurrentRawStream(self._dev_index),
+                self._params_ref, self.stages + 1)
+        if err != 0:
+            raise RuntimeError(f"plane_gs: barrier chain launch failed "
+                               f"(cudaError {err})")
 
 
 def plane_gs_plain(op: PlaneGSOperand, r: torch.Tensor) -> torch.Tensor:
