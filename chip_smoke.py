@@ -9,8 +9,8 @@
    build/torch_kernels/, both at once;
 2. assembles the lc=0.04 production channel (230,692 dofs) at the stored
    solution's state, with its multigrid hierarchy, and holds K1's
-   prepared operand against its plain PyTorch version for the four
-   (values, x) type pairs the solves of phases 3 and 7 use, on every
+   prepared operand against its plain PyTorch version for the five
+   (values, x) type pairs the solves of phases 3, 7 and 16 use, on every
    V-cycle level where they launch each, unmasked and with the BC mask
    fused in; and
    takes K1's yardsticks there: its time with L2 flushed (256 MB written
@@ -57,7 +57,10 @@
    fixture's solver settings against tests/fixtures/cavity_ns.npz; the
    duct SUPS Navier-Stokes problem of tests/parity_fixtures.py, built
    with the port's modules, against tests/fixtures/duct_ns.npz (both
-   rel-L2 < 1e-6); ``duct_stokes.solve_duct(12, 48, length=4)`` against
+   rel-L2 < 1e-6), and the same duct problem in float32, the Newton
+   followed by ``refine_newton_bcsr`` (f64 residual) to 1e-8, against
+   duct_ns.npz (rel-L2 < 1e-6); ``duct_stokes.solve_duct(12, 48,
+   length=4)`` against
    the developed profile (rel-L2 < 0.12, transverse velocity < 5% of the
    axial maximum; tests/test_stokes_duct.py); and
    ``stokes_channel.solve_stokes_channel(circle, 0.5, lc=0.1)`` against
@@ -123,8 +126,9 @@
 15. K2 against its plain version on every smoothed V-cycle level of the
    lc=0.04 channel (levels 0-2; the coarsest is solved densely), at the
    Stokes matrix J(0) and at the NS Jacobian of the stored solution, for
-   its two type pairs (f64 values and iterate: ``pc="mg"``; bf16 values,
-   f32 iterate: ``mg_bf16``); its time with L2 flushed, its bound (bytes
+   its three type pairs (f64 values and iterate: ``pc="mg"``; bf16
+   values, f32 iterate: ``mg_bf16``; f32 values and iterate: ``pc="mg"``
+   in phase 16's float32 solve); its time with L2 flushed, its bound (bytes
    over 3.35 TB/s, or its FLOP where they take longer) and the plain
    version's time; per level its launch plan (the cluster size, threads,
    shared memory a block, value ring or values from memory), its stages
@@ -135,21 +139,35 @@
    all converged, the two plane-GS solves within rel-L2 1e-6 of the
    Chebyshev one, each launching K2 for its pair; prints FGMRES counts,
    walls and launches;
-16. prints one JSON line of kernel results (error: the largest over the
+16. runs the main path in float32 with refinement,
+   ``solve_ns_flow(10, circle, 0.5, lc=0.04, dtype=torch.float32)`` with
+   the default ``refine="auto"``: the Stokes start, the Newton and every
+   FGMRES in float32, then ``refine_newton_layered`` with the residual in
+   float64 on f64 geometry: checks that it refined and converged within
+   ``refine_max_it`` steps, that w + w_lo matches channel_ns_prod.npz to
+   rel-L2 < 1e-6, and that it launched K1 for (f32, f32) and (bf16, f32)
+   and K2 for (f32, f32); prints the Stokes FGMRES count, the base
+   Newton's steps, FGMRES counts and |F|, the refinement history, the
+   timings beside phase 3's f64 wall, and one f64 residual and one f32
+   Jacobian of that problem timed on the card (a refinement step costs
+   one of each) with the f64 geometry's bytes;
+17. prints one JSON line of kernel results (error: the largest over the
    levels checked in phases 2, 11 and 14; times, bound and library time:
    level 0 of the channel with the mask fused, as the solve calls it, L2
    flushed; ``ms_b2b`` back to back, ``ms_unmasked`` flushed without the
    mask; ``launches``: on the pair's own path, ``path`` — phase 3 for
-   the main path's three pairs, phase 7 for f64 values with f32 x;
-   ``launches_tfqmr``: phase 7's for every pair; ``launches_dfg3d``:
+   the main path's three pairs, phase 7 for f64 values with f32 x,
+   phase 16 ("f32") for f32 values with f32 x;
+   ``launches_tfqmr``: phase 7's for every pair; ``launches_f32``:
+   phase 16's; ``launches_dfg3d``:
    phase 11's solve; ``launches_sharded``: phase 14's sharded solve;
    ``ms_dfg3d``, ``bound_ms_dfg3d``: level 0 of the pillar operator,
    masked, flushed; ``ms_slab``, ``bound_ms_slab``: the slab operand of
    phase 14, likewise; for K2: the largest error over phase 15's levels
    and states, the times and bound at level 0 of the Stokes matrix,
    ``cluster`` and ``barrier_chain_ms`` there, the launches of phase 3
-   for f64 and of phase 15's ``mg_bf16`` solve for bf16), then the final
-   JSON status line.
+   for f64, of phase 15's ``mg_bf16`` solve for bf16 and of phase 16 for
+   f32), then the final JSON status line.
    The trace, the block-CSR path and the host-LU path run no
    hand-written kernel, so they add no entry.
 
@@ -184,22 +202,27 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
 FLUSH_BYTES = 256 * 2 ** 20  # written between flushed launches (> 50 MB L2)
 # (values dtype, x dtype, rel-L2 tolerance of kernel vs plain, the path
 # whose launches the kernels line reports: "main" = phase 3, "tfqmr" =
-# phase 7): f64 differs only in summation order; with bf16 values the
-# plain version rounds each product to bf16, the kernel takes it in the x
-# dtype; f64 values with f32 x (phase 7's mg_cheby smoother) sum in f32
+# phase 7, "f32" = phase 16): f64 differs only in summation order; with
+# bf16 values the plain version rounds each product to bf16, the kernel
+# takes it in the x dtype; f64 values with f32 x (phase 7's mg_cheby
+# smoother) and f32 values with f32 x (phase 16's operator and Stokes
+# V-cycle) sum in f32
 PAIRS = (("float64", "float64", 1e-12, "main"),
          ("bfloat16", "float32", 5e-3, "main"),
          ("bfloat16", "float64", 5e-3, "main"),
-         ("float64", "float32", 1e-5, "tfqmr"))
+         ("float64", "float32", 1e-5, "tfqmr"),
+         ("float32", "float32", 1e-5, "f32"))
 # K2, the plane-GS sweep: (values dtype, iterate dtype, rel-L2 tolerance
 # of kernel vs plain, the path whose launches the kernels line reports:
 # "main" = phase 3, whose Stokes solve runs pc="mg"; "mg_bf16" = phase
-# 15's Stokes solve with that PC).  Both sides read the same values and
-# inverses and compute in the iterate's type; they differ in the
-# summation order of the 2D products only, which the sweep carries from
-# plane to plane (hence 1e-10, not K1's 1e-12, in f64)
+# 15's Stokes solve with that PC; "f32" = phase 16, whose f32 Stokes solve
+# runs pc="mg").  Both sides read the same values and inverses and compute
+# in the iterate's type; they differ in the summation order of the 2D
+# products only, which the sweep carries from plane to plane (hence
+# 1e-10, not K1's 1e-12, in f64)
 K2_PAIRS = (("float64", "float64", 1e-10, "main"),
-            ("bfloat16", "float32", 1e-4, "mg_bf16"))
+            ("bfloat16", "float32", 1e-4, "mg_bf16"),
+            ("float32", "float32", 1e-4, "f32"))
 K2_REPLACES = ("stabilized_navier_stokes_flow_fenicsx_tpu/solve/"
                "precond.py:251")
 
@@ -290,11 +313,14 @@ def solve_levels(n_lv: int) -> dict:
     (solved densely); x in f32 are the smoothers and spectral estimates
     on every level, with bf16 values (mg_cheby_bf16: the Stokes solve and
     phase 3's Newton) or f64 ones (mg_cheby: phase 7's Newton); bf16
-    values with f64 x are the bf16 V-cycle's residuals."""
+    values with f64 x are the bf16 V-cycle's residuals; f32 values with
+    f32 x are phase 16's outer operator (level 0) and the residuals of its
+    f32 plane-GS Stokes V-cycle (every level but the coarsest)."""
     return {("float64", "float64"): range(n_lv - 1),
             ("bfloat16", "float32"): range(n_lv),
             ("bfloat16", "float64"): range(n_lv - 1),
-            ("float64", "float32"): range(n_lv)}
+            ("float64", "float32"): range(n_lv),
+            ("float32", "float32"): range(n_lv - 1)}
 
 
 def k1_bytes(op, vdtype, xdtype, masked: bool) -> int:
@@ -534,7 +560,7 @@ def run_main_path(torch, np, img, device):
         raise RuntimeError("the solve never launched K1")
     if plane_gs.LAUNCHES <= 0:
         raise RuntimeError("the solve never launched K2")
-    return launches, k2_launches, sol
+    return launches, k2_launches, sol, wall
 
 
 def _on_card(*tensors) -> bool:
@@ -763,7 +789,7 @@ def run_bcsr_cases(torch, np, img, device):
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import (
         duct_stokes, lid_driven, stokes_channel)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.assembly import (
-        assembler_for_mixed)
+        asm_arrays_in, assembler_for_mixed)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import (
         SolverConfig)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.fem.bc import (
@@ -775,7 +801,7 @@ def run_bcsr_cases(torch, np, img, device):
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.mesh.structured import (
         duct_mesh)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
-        solve_newton_bcsr)
+        refine_newton_bcsr, solve_newton_bcsr)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.exact import (
         square_duct_mean, square_duct_profile)
 
@@ -825,6 +851,35 @@ def run_bcsr_cases(torch, np, img, device):
           f"{[int(h[2]) for h in out.history]}, rel-L2 vs duct_ns.npz "
           f"{rel:.3e}", flush=True)
     _bar(out.converged and rel < 1e-6, "duct_ns.npz rel-L2 < 1e-6")
+
+    # the same problem in float32: the Newton to its floor (FGMRES at
+    # 1e-6), then refinement with the f64 residual to 1e-8, as
+    # tests/parity_fixtures.py::solve_duct_ns runs it
+    t0 = time.perf_counter()
+    asm32 = assembler_for_mixed(W, dtype=torch.float32, device=device)
+    mask32 = asm32.vector(bc_mask(W.ndofs, bc))
+    g64 = torch.as_tensor(bc_vector(W.ndofs, bc), dtype=torch.float64,
+                          device=device)
+    zero = torch.zeros(W.ndofs, dtype=torch.float32, device=device)
+    kern = make_ns_sups_kernel("tetrahedron", 1.0 / float(duct_fx["Re"]))
+    out = solve_newton_bcsr(
+        kern, asm32.ndofs, pat.nnzb, pat.bs, pat.n_rows, asm32.arrays,
+        mask32, g64.float(), zero, rtol=1e-10, atol=1e-10, max_it=30,
+        ksp_rtol=1e-6)
+    n0 = float(torch.linalg.vector_norm(
+        asm32.bc_residual(kern, zero, mask32, g64.float())))
+    rres = refine_newton_bcsr(
+        kern, asm32.ndofs, pat.nnzb, pat.bs, pat.n_rows, asm32.arrays,
+        asm_arrays_in(asm32.arrays, mesh, torch.float64), mask32, g64,
+        out.x, n0, 1e-8, 0.0, 12, 1e-2)
+    rel = _rel(np, rres.x.cpu().numpy(), duct_fx["w"])
+    print(f"duct SUPS NS Re=20 float32 + refinement: "
+          f"{time.perf_counter() - t0:.2f} s, f32 Newton its {out.iters} "
+          f"(|F| {out.resnorm:.3e}), refinement steps {rres.iters}, rows "
+          f"[|F|, FGMRES its, |r|] {rres.history.tolist()}, rel-L2 vs "
+          f"duct_ns.npz {rel:.3e}", flush=True)
+    _bar(rres.converged and rel < 1e-6,
+         "duct_ns.npz rel-L2 < 1e-6 in float32 with refinement")
 
     t0 = time.perf_counter()
     # the reference's domain length >= 4 (SURVEY.md:234) and cells no
@@ -1509,11 +1564,97 @@ def run_plane_gs(torch, np, img, device):
         _bar(rel < 1e-6, f"the pc={pc} and mg_cheby_bf16 Stokes solves "
                          f"agree to rel-L2 1e-6")
     for (vname, aname), pc in (((v, x), "mg" if p == "main" else p)
-                               for v, x, _, p in K2_PAIRS):
+                               for v, x, _, p in K2_PAIRS if p != "f32"):
         key = (getattr(torch, vname), getattr(torch, aname))
         _bar(launches[pc].get(key, 0) > 0,
              f"the pc={pc} Stokes solve launched K2 ({vname}, {aname})")
     return checks, launches["mg_bf16"]
+
+
+def run_f32_main_path(torch, np, img, device, f64_wall):
+    """Phase 16: the main path in float32 with refinement (an f64
+    residual on f64 geometry).  Returns (K1, K2) launches by pair."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
+        layered_arrays_in, matrix_values_layered, residual_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
+        _setup_layered, solve_ns_flow)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
+        solve_inlet_profiles)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
+        make_ns_sups_kernel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+
+    scfg = DEFAULT.solver
+    layered_spmv.reset_launches()
+    plane_gs.reset_launches()
+    t0 = time.perf_counter()
+    sol = solve_ns_flow(RE, img, RATIO, channel_mesh_size=LC, coarse_lc=LC,
+                        dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = dict(layered_spmv.LAUNCHES_BY_DTYPES)
+    k2 = dict(plane_gs.LAUNCHES_BY_DTYPES)
+
+    print(f"float32 solve_ns_flow + refinement: {wall:.2f} s wall (phase "
+          f"3's float64 solve: {f64_wall:.2f} s), timings "
+          f"{json.dumps({k: round(v, 4) for k, v in sol.timings.items()})}",
+          flush=True)
+    print(f"float32 Stokes FGMRES its {sol.stokes_iters}; fine Newton its "
+          f"{sol.newton_iters}, |F| {sol.newton_resnorm:.3e}, converged "
+          f"{sol.base_converged}", flush=True)
+    for name, h in sol.newton_history.items():
+        print(f"float32 {name}: FGMRES its {[int(r[2]) for r in h]}, lambda "
+              f"{[float(r[1]) for r in h]}, |F| "
+              f"{[float('%.3e' % r[0]) for r in h]}", flush=True)
+    print(f"refined {sol.refined}: {sol.refine_iters} steps (budget "
+          f"{scfg.refine_max_it}), |F| {sol.refine_resnorm:.3e}, converged "
+          f"{sol.converged}", flush=True)
+    print(f"K1 launches in the float32 solve: {layered_spmv.LAUNCHES} "
+          f"{_by_pair(k1)}; K2: {plane_gs.LAUNCHES} {_by_pair(k2)}",
+          flush=True)
+
+    # what one refinement step costs: an f64 residual on the f64 geometry
+    # and an f32 Jacobian, on this problem at the solution
+    inlet1, inlet2 = solve_inlet_profiles(img, RATIO, DEFAULT)
+    st = _setup_layered(sol.mesh, inlet1, inlet2, torch.float32, 0, device)
+    lp = st.lp
+    a64 = layered_arrays_in(lp.arrays, sol.mesh, torch.float64)
+    geo_bytes = sum(t.numel() * t.element_size() for t in (
+        a64.cell_coords, a64.sasm.cell_coords, a64.sasm.coordsT))
+    kern = make_ns_sups_kernel("tetrahedron", nu=1.0 / RE,
+                               C_I=DEFAULT.stab.C_I)
+    w64 = torch.as_tensor(sol.w.astype(np.float64) + sol.w_lo,
+                          device=device)
+    w32 = w64.float()
+    res_ms = time_ms(lambda: residual_layered(
+        kern, lp.n2d, lp.n_planes, lp.bs, a64, w64), 5)
+    jac_ms = time_ms(lambda: matrix_values_layered(
+        kern, lp.E, lp.n_planes, lp.bs, lp.arrays, w32), 5)
+    print(f"a refinement step's assembly: f64 residual {res_ms:.2f} ms, f32 "
+          f"Jacobian {jac_ms:.2f} ms (CUDA events, median of 5); the f64 "
+          f"geometry {geo_bytes / 2 ** 20:.1f} MiB", flush=True)
+    del st, a64
+
+    w_ref = np.load(FIXTURE)["w"]
+    w = sol.w.astype(np.float64) + sol.w_lo
+    rel = _rel(np, w, w_ref)
+    print(f"float32 + refinement: rel-L2 of w + w_lo vs channel_ns_prod.npz "
+          f"{rel:.3e} (bar 1e-6); of w alone {_rel(np, sol.w, w_ref):.3e}",
+          flush=True)
+    _bar(sol.refined and sol.converged and np.isfinite(w).all(),
+         "the float32 solve refined and converged")
+    _bar(sol.refine_iters <= scfg.refine_max_it,
+         f"refinement within refine_max_it = {scfg.refine_max_it} steps")
+    _bar(w.shape == w_ref.shape and rel < 1e-6,
+         "w + w_lo within rel-L2 1e-6 of channel_ns_prod.npz")
+    f32, bf16 = torch.float32, torch.bfloat16
+    _bar(k1.get((f32, f32), 0) > 0 and k1.get((bf16, f32), 0) > 0,
+         "K1 launched for (float32, float32) and (bfloat16, float32)")
+    _bar(k2.get((f32, f32), 0) > 0, "K2 launched for (float32, float32)")
+    return k1, k2
 
 
 def _by_pair(launches) -> dict:
@@ -1572,7 +1713,8 @@ def main() -> int:
     try:
         checks = check_levels(torch, np, k1_levels(torch, np, img, device),
                               PAIRS, device)
-        launches, k2_main, sol = run_main_path(torch, np, img, device)
+        launches, k2_main, sol, f64_wall = run_main_path(torch, np, img,
+                                                         device)
         inlet1 = run_trace(torch, np, img, sol, device)
         check_trace_arithmetic(torch, np, sol, inlet1, device)
         run_warm_sweep(torch, np, img, sol, device)
@@ -1585,13 +1727,17 @@ def main() -> int:
         run_reynolds_ladder(torch, np, img, device)
         slab_checks, sharded_launches = run_sharded(torch, np, img, device)
         k2_checks, k2_bf16 = run_plane_gs(torch, np, img, device)
+        f32_launches, k2_f32 = run_f32_main_path(torch, np, img, device,
+                                                 f64_wall)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
         traceback.print_exc()
         return fail(str(e))
     by_path = {"main": launches, "tfqmr": tfqmr_launches,
-               "dfg3d": dfg3d_launches, "sharded": sharded_launches}
+               "dfg3d": dfg3d_launches, "sharded": sharded_launches,
+               "f32": f32_launches}
+    k2_by_path = {"main": k2_main, "mg_bf16": k2_bf16, "f32": k2_f32}
     on_pillar = {c["pair"]: c for c in dfg3d_checks}
     on_slab = {c["pair"]: c for c in slab_checks}
 
@@ -1617,6 +1763,7 @@ def main() -> int:
         replaces=TPU_KERNEL,
         launches=count(c, c["path"]), path=c["path"],
         launches_tfqmr=count(c, "tfqmr"),
+        launches_f32=count(c, "f32"),
         launches_dfg3d=count(c, "dfg3d"),
         launches_sharded=count(c, "sharded"),
         max_abs_err=max(c["max_abs_err"],
@@ -1638,7 +1785,7 @@ def main() -> int:
         route="cuda",
         source=f"{PKG}/csrc/plane_gs.cu",
         replaces=K2_REPLACES,
-        launches=(k2_main if path == "main" else k2_bf16).get(
+        launches=k2_by_path[path].get(
             (getattr(torch, vname), getattr(torch, aname)), 0),
         path=path,
         max_abs_err=max(k2_checks[(vname, aname)]["errs"]),

@@ -187,11 +187,12 @@ def solve_dfg3d_fine(scale: float = 0.5,
     mg-Chebyshev V-cycle, FGMRES Newton) applies verbatim, in float64.
 
     DELIBERATE differences from the JAX package: its stepped Newton
-    drivers and its double-float refinement pass are work-arounds for a
-    device without float64 and are not ported.  Here every viscosity rung
-    is ``solve_newton_layered`` (rtol 1e-8, atol 1e-9), and the last rung
-    runs to the refinement's own targets (rtol 1e-8, atol 1e-10);
-    ``converged`` is that rung's flag.
+    drivers are a work-around for its remote compiler and are not
+    ported, and it solves in float32 with a double-float refinement pass
+    because its device lacks float64.  Here every viscosity rung is
+    ``solve_newton_layered`` in float64 (rtol 1e-8, atol 1e-9), and the
+    last rung runs to the refinement's own targets (rtol 1e-8, atol
+    1e-10) with no refinement pass; ``converged`` is that rung's flag.
 
     Forces use the same consistent reaction functional, evaluated from
     the RAW layered residual (no BC substitution, no projection), plus

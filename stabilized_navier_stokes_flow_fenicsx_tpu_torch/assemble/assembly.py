@@ -309,6 +309,19 @@ class Assembler:
         return values, self.bc_operator(values, mask), b_bc, mask
 
 
+def asm_arrays_in(arrays: AsmArrays, mesh, dtype: torch.dtype) -> AsmArrays:
+    """``arrays`` (built for ``mesh``) with the cell coordinates taken
+    anew from ``mesh.points`` in ``dtype``; the index tables are shared,
+    and arrays already in ``dtype`` come back as they are.  The f64
+    residual of iterative refinement (solve/refine.py) assembles on it:
+    the f32 coordinates cast up would define another discrete problem."""
+    if arrays.cell_coords.dtype == dtype:
+        return arrays
+    return dataclasses.replace(arrays, cell_coords=torch.as_tensor(
+        np.asarray(mesh.points)[mesh.cells], dtype=dtype,
+        device=arrays.cell_coords.device))
+
+
 def assembler_for_mixed(space: MixedVelocityPressureSpace, dtype=None,
                         device=None) -> Assembler:
     mesh = space.mesh

@@ -181,6 +181,34 @@ def build_layered(
                           np.asarray(rows2d), np.asarray(cols2d))
 
 
+def layered_arrays_in(arrays: LayeredArrays, mesh,
+                      dtype: torch.dtype) -> LayeredArrays:
+    """``arrays`` (built by ``build_layered`` for ``mesh``) with every
+    coordinate table rebuilt from ``mesh.points`` in ``dtype``; the index
+    tables and the structured plan are shared, and arrays already in
+    ``dtype`` come back as they are.  The f64 residual of iterative
+    refinement (solve/refine.py) assembles on it: the f32 coordinates
+    cast up would define another discrete problem."""
+    if arrays.cell_coords.dtype == dtype:
+        return arrays
+    dev = arrays.cell_coords.device
+    nc, nc_pad = mesh.cells.shape[0], arrays.cell_coords.shape[0]
+    ids = torch.zeros(nc_pad, dtype=torch.int64, device=dev)
+    ids[:nc] = torch.arange(nc, device=dev)     # padded cells: cell 0
+    pts = torch.as_tensor(np.asarray(mesh.points), dtype=dtype, device=dev)
+    cc = pts[upload(mesh.cells, dev)[ids]]      # (nc_pad, nv, 3)
+    sasm = arrays.sasm
+    if sasm is not None:
+        if sasm.cell_ids is None:
+            raise ValueError("the structured plan has no cell_ids (a plan "
+                             "converted from the JAX package's)")
+        scc = cc[sasm.cell_ids]
+        sasm = dataclasses.replace(
+            sasm, cell_coords=scc,
+            coordsT=scc.reshape(scc.shape[0], -1).T.contiguous())
+    return dataclasses.replace(arrays, cell_coords=cc, sasm=sasm)
+
+
 def _plan(arrays: LayeredArrays) -> StructuredAsm:
     if arrays.sasm is None:
         raise ValueError("mesh does not carry the layer-invariant "

@@ -57,12 +57,16 @@ class StructuredAsm:
     rtab_over: torch.Tensor     # (n_rover, degRB)
     roff_over: torch.Tensor     # (n_rover, degRB) f32
     rover_ids: torch.Tensor     # (n_rover,) target scalar-dof ids
+    # (M3p*nl,) row of the padded cell table each structured cell takes
+    # its coordinates from (``layered.layered_arrays_in``); None in a plan
+    # converted from the JAX package's, which has no such field
+    cell_ids: Optional[torch.Tensor] = None
 
     @classmethod
     def from_numpy(cls, fields: Mapping, device) -> "StructuredAsm":
         """Upload host fields (by name) to ``device``."""
         return cls(**{f.name: upload(fields[f.name], device)
-                      for f in dataclasses.fields(cls)})
+                      for f in dataclasses.fields(cls) if f.name in fields})
 
 
 def build_structured_plan(mesh, cd_np, cc_np, ep_np, n2d: int, Lp: int,
@@ -178,6 +182,8 @@ def build_structured_plan(mesh, cd_np, cc_np, ep_np, n2d: int, Lp: int,
     scc[M3:] = cc[0]
     smask = np.zeros((M3p, nl), np.float32)
     smask[:M3] = aliveT
+    cell_ids = np.zeros((M3p, nl), np.int64)
+    cell_ids[:M3] = gsafe
 
     # ---- SoA extension: transposed coords + w-gather + residual plan --
     soa_fields = _build_soa_tables(
@@ -194,6 +200,7 @@ def build_structured_plan(mesh, cd_np, cc_np, ep_np, n2d: int, Lp: int,
         tab_over=tab_over,
         off_over=off_over,
         over_ids=over_ids.astype(np.int32),
+        cell_ids=cell_ids.reshape(M3p * nl),
         **soa_fields,
     ), device)
 

@@ -19,8 +19,10 @@ import torch
 def default_dtype() -> torch.dtype:
     """Library-wide solve dtype: float64.
 
-    The card runs f64 natively, so the solve needs no compensated
-    arithmetic (``SolverConfig.refine="auto"`` resolves to off).
+    The card runs f64 natively, so a default solve needs no refinement
+    (``SolverConfig.refine="auto"`` is off for it); a caller who passes
+    ``dtype=torch.float32`` gets the float32 solve with f64-residual
+    refinement (solve/refine.py) under "auto".
     """
     return torch.float64
 
@@ -99,11 +101,17 @@ class SolverConfig:
     # it stalled at the matvec budget and broke down to NaN at lc=0.04 on
     # the H100 (PERF.md).
     ksp_type: str = "fgmres"
-    # double-float iterative refinement: "auto" enables it exactly when
-    # the solve dtype is float32, which the port never uses (f64 solves),
-    # so it resolves to off.  The double-float stack is not ported:
-    # "on" (or "auto" with a float32 solve) raises NotImplementedError.
+    # iterative refinement after the Newton solve (solve/refine.py): the
+    # iterate and the residual in float64, the Jacobian, the
+    # preconditioner and FGMRES (refine_ksp_rtol, at most
+    # refine_ksp_max_restarts cycles) in the solve dtype, at most
+    # refine_max_it steps to the Newton tolerances.  "auto" turns it on
+    # exactly when the solve dtype is float32, "on" forces it, "off"
+    # turns it off.
     refine: str = "auto"
+    refine_max_it: int = 10
+    refine_ksp_rtol: float = 1e-2
+    refine_ksp_max_restarts: int = 8
     # layered-operator preconditioners (solve/driver.py::_layered_pc):
     # "mg[_<smoother>][<degree>][w][_bf16]" = aggregation multigrid
     # (solve/mg.py; "mg" alone is the plane-Gauss-Seidel V-cycle,

@@ -22,7 +22,11 @@ from a previous Re's fine solution on the same (image, lc).
 Meshing, BCs and interpolation are host numpy; every solve runs on the
 given torch device.  The Stokes solve uses the plane-Gauss-Seidel
 V-cycle and Newton the Chebyshev one, as in the JAX package (see
-``config.SolverConfig.pc``); the double-float refinement is not ported.
+``config.SolverConfig.pc``).  With ``dtype=torch.float32`` the fine
+Newton is followed by iterative refinement to the Newton tolerances
+(``SolverConfig.refine``, solve/refine.py): the JAX package's
+double-float residual is an f64 one here, on f64 geometry and f64 BC
+values.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..assemble.layered import layered_arrays_in
 from ..config import DEFAULT, Config, default_device, default_dtype
 from ..fem.bc import DirichletBC, bc_mask, bc_vector, combine_bcs
 from ..fem.interpolate import build_locator, interpolate_p1_np
@@ -44,8 +49,10 @@ from ..mesh.core import SimplexMesh
 from ..mesh.extrude import extrude_channel
 from ..mesh.image import get_contours, load_image, optimize_contour
 from ..mesh.tri2d import triangulate_cross_section
-from ..solve.driver import solve_linear_layered, solve_newton_layered
+from ..solve.driver import (refine_newton_layered, residual_norm_layered,
+                            solve_linear_layered, solve_newton_layered)
 from ..solve.newton import KSP_TYPES
+from ..solve.refine import refine_enabled
 from ..utils.device import sync
 from .inlet import InletProfile, solve_inlet_profiles
 
@@ -63,11 +70,22 @@ class ChannelSolution:
     converged: bool
     timings: dict
     stokes_iters: int = 0
-    # Newton history per solve ("coarse_ns_Re<r>" per ladder rung, then
-    # "fine_ns"): rows [|F| after step, lambda, Krylov its (TFQMR:
-    # matvecs), Krylov |r|]
+    # Newton history per solve ("coarse_ns_Re<r>" per ladder rung,
+    # "fine_ns", then "refine" when refined): rows [|F| after step,
+    # lambda, Krylov its (TFQMR: matvecs), Krylov |r|]; a refinement step
+    # is a full step (lambda 1), its |F| the f64 residual's
     newton_history: Dict[str, np.ndarray] = dataclasses.field(
         default_factory=dict)
+    # iterative refinement (solve/refine.py), populated when it ran.
+    # When refined, ``converged`` reports the refined solve and the fine
+    # Newton's own flag is ``base_converged``; ``w`` is the iterate in the
+    # solve dtype and ``w_lo`` the f64 remainder (w + w_lo is the f64
+    # solution u and p are split from)
+    refined: bool = False
+    refine_iters: int = 0
+    refine_resnorm: float = float("nan")
+    w_lo: Optional[np.ndarray] = None
+    base_converged: bool = True
 
 
 def generate_channel_mesh(
@@ -159,6 +177,7 @@ class LayeredSetup:
     mask: torch.Tensor
     g: torch.Tensor
     mg: object = None              # solve.mg.MGHierarchy or None
+    g64: Optional[torch.Tensor] = None   # the BC values in f64 (refinement)
 
 
 def _setup_layered(mesh, inlet1, inlet2, dtype=None, mg_levels=0,
@@ -182,14 +201,17 @@ def _setup_layered(mesh, inlet1, inlet2, dtype=None, mg_levels=0,
         [DirichletBC(unused_dofs, np.zeros(len(unused_dofs))), bc])
     mask_np = bc_mask(W.ndofs, bc)
     mask = torch.as_tensor(mask_np, dtype=dtype, device=device)
-    g = torch.as_tensor(bc_vector(W.ndofs, bc), dtype=dtype, device=device)
+    g_np = bc_vector(W.ndofs, bc)
+    g = torch.as_tensor(g_np, dtype=dtype, device=device)
+    g64 = g if dtype == torch.float64 else torch.as_tensor(
+        g_np, dtype=torch.float64, device=device)
     mg = None
     if mg_levels > 0:
         mg = build_mg_hierarchy(
             lp.rows2d, lp.cols2d, lp.n2d, lp.n_planes,
             mask_np.astype(np.float32), lp.bs, n_levels=mg_levels,
             device=device)
-    return LayeredSetup(W, lp, mask, g, mg)
+    return LayeredSetup(W, lp, mask, g, mg, g64)
 
 
 def _mg_levels(scfg) -> int:
@@ -238,10 +260,6 @@ def solve_ns_flow(
     scfg = cfg.solver
     dtype = default_dtype() if dtype is None else dtype
     device = default_device() if device is None else torch.device(device)
-    if scfg.refine == "on" or (scfg.refine == "auto"
-                               and dtype == torch.float32):
-        raise NotImplementedError(
-            "double-float refinement is not ported: solve in float64")
     if scfg.ksp_type not in KSP_TYPES:
         raise ValueError(f"ksp_type={scfg.ksp_type!r}: expected one of "
                          f"{KSP_TYPES}")
@@ -326,27 +344,61 @@ def solve_ns_flow(
         w0_f = st_f.mask * w0_f + (1.0 - st_f.mask) * st_f.g
         timings["interpolate"] = time.perf_counter() - t0
 
-    sol = _fine_newton(Re, cfg, mesh_f, st_f, ns_kernel(Re), w0_f, timings,
-                       device)
+    sol = _fine_newton_refine(Re, cfg, mesh_f, st_f, ns_kernel(Re), w0_f,
+                              timings, device)
     sol.stokes_iters = int(sres.iters)
     sol.newton_history = {**history, **sol.newton_history}
     return sol
 
 
-def _fine_newton(Re, cfg, mesh_f, st_f: LayeredSetup, ns_f, w0_f,
-                 timings, device) -> ChannelSolution:
-    """Fine-mesh Newton + result packaging (the JAX package's
-    ``_fine_newton_refine`` without its refinement branch)."""
+def _fine_newton_refine(Re, cfg, mesh_f, st_f: LayeredSetup, ns_f, w0_f,
+                        timings, device) -> ChannelSolution:
+    """Fine-mesh Newton, the optional refinement and the result packaging:
+    the shared tail of the continuation solve and the warm path (the JAX
+    package's ``_fine_newton_refine``).  Refinement runs after the Newton
+    however it ended: a float32 Newton cannot reach 1e-8 and stops
+    stalled or at its step budget."""
+    scfg = cfg.solver
+    lp = st_f.lp
     t0 = time.perf_counter()
-    nres_f = _newton(ns_f, st_f, w0_f, cfg.solver)
+    nres_f = _newton(ns_f, st_f, w0_f, scfg)
     sync(device)
     timings["fine_ns"] = time.perf_counter() - t0
-    w = nres_f.x.cpu().numpy()
-    u, p = st_f.space.split(w)
+    history = {"fine_ns": nres_f.history}
+    if not refine_enabled(scfg.refine, st_f.mask.dtype):
+        w = nres_f.x.cpu().numpy()
+        u, p = st_f.space.split(w)
+        return ChannelSolution(
+            mesh_f, st_f.space, w, u, p, Re, int(nres_f.iters),
+            float(nres_f.resnorm), bool(nres_f.converged), timings,
+            newton_history=history)
+
+    t0 = time.perf_counter()
+    # SNES semantics: n0 is ||F|| at the fine Newton's start, in the solve
+    # dtype, as the JAX package takes it
+    n0 = residual_norm_layered(ns_f, lp.n2d, lp.n_planes, lp.bs, lp.arrays,
+                               st_f.mask, st_f.g, w0_f, lp.E)
+    rres = refine_newton_layered(
+        ns_f, lp.n2d, lp.n_planes, lp.bs, lp.E, lp.arrays,
+        layered_arrays_in(lp.arrays, mesh_f, torch.float64),
+        st_f.mask, st_f.g64, nres_f.x, n0, scfg.newton_rtol,
+        scfg.newton_atol, scfg.refine_max_it, scfg.refine_ksp_rtol,
+        scfg.ksp_restart, scfg.refine_ksp_max_restarts, scfg.pc_newton,
+        st_f.mg)
+    sync(device)
+    timings["refine"] = time.perf_counter() - t0
+    h = rres.history
+    history["refine"] = np.stack(
+        [h[:, 0], np.ones(len(h)), h[:, 1], h[:, 2]], axis=1)
+    w = rres.x_hi.cpu().numpy()
+    w_lo = rres.x_lo.cpu().numpy()
+    u, p = st_f.space.split(w.astype(np.float64) + w_lo)
     return ChannelSolution(
         mesh_f, st_f.space, w, u, p, Re, int(nres_f.iters),
-        float(nres_f.resnorm), bool(nres_f.converged), timings,
-        newton_history={"fine_ns": nres_f.history})
+        float(nres_f.resnorm), bool(rres.converged), timings,
+        newton_history=history, refined=True, refine_iters=rres.iters,
+        refine_resnorm=rres.resnorm, w_lo=w_lo,
+        base_converged=bool(nres_f.converged))
 
 
 def _solve_ns_flow_warm(Re, img_fname, inlet1, inlet2, lc, cfg, dtype,
@@ -372,7 +424,8 @@ def _solve_ns_flow_warm(Re, img_fname, inlet1, inlet2, lc, cfg, dtype,
     ns_f = make_ns_sups_kernel(
         "tetrahedron", nu=1.0 / Re, C_I=cfg.stab.C_I,
         transposed_stab=cfg.stab.transposed_advection_in_stab)
-    return _fine_newton(Re, cfg, mesh_f, st_f, ns_f, w0_f, timings, device)
+    return _fine_newton_refine(Re, cfg, mesh_f, st_f, ns_f, w0_f, timings,
+                               device)
 
 
 def solve_ns_flow_single_mesh(

@@ -5,9 +5,11 @@ of ``fem.petsc.LinearProblem`` and the SNES driver (reference
 NavierStokesChannelFlow.py:197-218, 268-312).  Each is a plain function
 on tensors with the JAX package's positional signature: assembly,
 preconditioner setup and the Krylov/Newton iterations run eagerly on the
-tensors' device, with the loop control on the host.  The double-float
-refinement drivers (``refine_newton_*``) and the stepped drivers are not
-ported.
+tensors' device, with the loop control on the host.  The refinement
+drivers (``refine_newton_layered``, ``refine_newton_bcsr``) take an f64
+residual where the JAX package's take a double-float one
+(solve/refine.py); the stepped drivers, a work-around for the TPU's
+remote compiler, are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..assemble.layered import (
     matrix_values_layered, residual_layered)
 from .krylov import KrylovResult, cg, fgmres
 from .newton import NewtonResult, newton_solve
+from .refine import RefineResult, refine_newton
 from .precond import (block_jacobi, line_cr_layered, plane_gs_grouped,
                       plane_gs_layered, plane_zebra_layered)
 
@@ -273,5 +276,101 @@ def solve_newton_bcsr(
 
     return newton_solve(
         residual, jac_values, make_op, make_pc, w0,
+        rtol=rtol, atol=atol, max_it=max_it, ksp_rtol=ksp_rtol,
+        ksp_restart=ksp_restart, ksp_max_restarts=ksp_max_restarts)
+
+
+def _bc_residual64(residual64: Callable, mask: torch.Tensor,
+                   g64: torch.Tensor) -> Callable:
+    """f64 w -> f64 F(w) with the Dirichlet rows substituted (w - g64):
+    the JAX package's ``_df_bc_residual`` in plain f64.  The 0/1 mask is
+    exact in any dtype; g64 must be the f64 BC values, not the solve
+    dtype's cast up, or the BC rows floor at ~eps |g|."""
+    m = mask.to(torch.float64)
+
+    def residual(w):
+        return m * residual64(w) + (1.0 - m) * (w - g64)
+
+    return residual
+
+
+def refine_newton_layered(
+    kernel: Callable,
+    n2d: int,
+    n_planes: int,
+    bs: int,
+    E: int,
+    arrays: LayeredArrays,
+    arrays64: LayeredArrays,
+    mask: torch.Tensor,
+    g64: torch.Tensor,
+    x0: torch.Tensor,
+    n0: float,
+    rtol: float = 1e-8,
+    atol: float = 1e-8,
+    max_it: int = 10,
+    ksp_rtol: float = 1e-2,
+    ksp_restart: int = 50,
+    ksp_max_restarts: int = 8,
+    pc: str = "plane_gs",
+    mg=None,
+) -> RefineResult:
+    """Iterative refinement on the layered path: the f64 residual on
+    ``arrays64`` (``layered.layered_arrays_in``), the Jacobian, operator
+    and preconditioner on ``arrays`` in the solve dtype (see
+    solve/refine.py)."""
+    residual64 = _bc_residual64(
+        lambda w: residual_layered(kernel, n2d, n_planes, bs, arrays64, w),
+        mask, g64)
+
+    def jac_values(w):
+        return matrix_values_layered(kernel, E, n_planes, bs, arrays, w)
+
+    def make_op(values):
+        return make_layered_op(arrays, n2d, n_planes, values, mask)
+
+    return refine_newton(
+        residual64, jac_values, make_op,
+        _layered_pc(pc, arrays, n2d, n_planes, mask, mg), x0, n0,
+        rtol=rtol, atol=atol, max_it=max_it, ksp_rtol=ksp_rtol,
+        ksp_restart=ksp_restart, ksp_max_restarts=ksp_max_restarts)
+
+
+def refine_newton_bcsr(
+    kernel: Callable,
+    ndofs: int,
+    nnzb: int,
+    bs: int,
+    n_rows: int,
+    arrays: AsmArrays,
+    arrays64: AsmArrays,
+    mask: torch.Tensor,
+    g64: torch.Tensor,
+    x0: torch.Tensor,
+    n0: float,
+    rtol: float = 1e-8,
+    atol: float = 1e-8,
+    max_it: int = 10,
+    ksp_rtol: float = 1e-2,
+    ksp_restart: int = 50,
+    ksp_max_restarts: int = 8,
+) -> RefineResult:
+    """Iterative refinement on the generic block-CSR path: the f64
+    residual on ``arrays64`` (``assembly.asm_arrays_in``), FGMRES with
+    node-block Jacobi on the diagonal blocks in the solve dtype."""
+    residual64 = _bc_residual64(
+        lambda w: residual_of(kernel, ndofs, arrays64, w), mask, g64)
+
+    def jac_values(w):
+        return matrix_values_of(kernel, nnzb, bs, arrays, w)
+
+    def make_op(values):
+        return _bc_op(arrays, n_rows, values, mask)
+
+    def make_pc(values):
+        return block_jacobi(values[arrays.diag_pos], mask)
+
+    return refine_newton(
+        residual64, jac_values, make_op, make_pc, x0, n0,
         rtol=rtol, atol=atol, max_it=max_it, ksp_rtol=ksp_rtol,
         ksp_restart=ksp_restart, ksp_max_restarts=ksp_max_restarts)

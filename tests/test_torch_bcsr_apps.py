@@ -12,7 +12,8 @@ the CPU in float64.
 * ``compare_images``: ``remove_gray_background`` and ``autocrop``
   identical to JAX on a seeded RGB image; the full figure where
   matplotlib imports.
-* ``refine="on"`` (and "auto" on a float32 solve) raises.
+
+Refinement (``refine="on"``, float32 solves) is tests/test_torch_refine.py.
 """
 
 import contextlib
@@ -148,14 +149,3 @@ def test_compare_images_matches_jax(tmp_path):
     want = jax_compare_images.main([sim, exp, str(tmp_path / "jax.png")])
     assert np.array_equal(np.asarray(Image.open(got)),
                           np.asarray(Image.open(want)))
-
-
-def test_refinement_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        duct_stokes.solve_duct(2, 2, solver=SolverConfig(refine="on"),
-                               device="cpu")
-    with pytest.raises(NotImplementedError):
-        lid_driven.solve_lid_driven(2, solver=SolverConfig(refine="on"),
-                                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        lid_driven.solve_lid_driven(2, dtype=torch.float32, device="cpu")

@@ -56,13 +56,6 @@ def test_channel_slice_matches_fixture(tmp_path):
     assert hist.shape[1] == 4 and (hist[:, 2] > 0).all()
 
 
-def test_double_float_refinement_is_not_ported(tmp_path):
-    cfg = DEFAULT.__class__(solver=SolverConfig(refine="on"))
-    with pytest.raises(NotImplementedError):
-        solve_ns_flow(10.0, channel_image(tmp_path), 0.5, cfg=cfg,
-                      device="cpu")
-
-
 def test_warm_sweep_path_matches_jax(tmp_path):
     img = channel_image(tmp_path)
     mesh, _, _ = jax_generate_channel_mesh(img, CHANNEL["lc"], JAX_DEFAULT,

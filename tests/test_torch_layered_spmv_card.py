@@ -19,7 +19,9 @@ Tolerances (relative L2):
 
 * f64 values, f64 x: 1e-12 — only the summation order differs;
 * bf16 values, f32 or f64 x: 5e-3 — the plain version rounds each
-  product to bf16, the kernel takes it in the x dtype.
+  product to bf16, the kernel takes it in the x dtype;
+* f64 values with f32 x, and f32 values with f32 x (the operator of a
+  float32 solve): 1e-5 — both sum in float32, in another order.
 """
 
 import numpy as np
@@ -49,6 +51,7 @@ PAIR_TOLS = [
     (torch.bfloat16, torch.float32, 5e-3),
     (torch.bfloat16, torch.float64, 5e-3),
     (torch.float64, torch.float32, 1e-5),
+    (torch.float32, torch.float32, 1e-5),
 ]
 
 

@@ -65,3 +65,25 @@ def rel_l2(a, b) -> float:
                    np.float64)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
+
+def recording(module, name, calls):
+    """Swap ``module.name`` for a wrapper that appends each result to
+    ``calls``; returns the original."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append(out)
+        return out
+
+    setattr(module, name, wrapper)
+    return fn
+
+
+def split_exact(w, w_lo):
+    """w (f32) is w + w_lo rounded to f32, and w_lo is the remainder."""
+    w64 = w.astype(np.float64) + w_lo
+    assert w.dtype == np.float32 and w_lo.dtype == np.float64
+    assert np.array_equal(w64.astype(np.float32), w)
+    assert np.array_equal(w64 - w.astype(np.float64), w_lo)
+    return w64
