@@ -151,7 +151,31 @@
    timings beside phase 3's f64 wall, and one f64 residual and one f32
    Jacobian of that problem timed on the card (a refinement step costs
    one of each) with the f64 geometry's bytes;
-17. prints one JSON line of kernel results (error: the largest over the
+17. runs the port's entry points as a user calls them, in working
+   directories under build/chip_smoke/apps/: ``apps.sweep.main(["re",
+   circle, "10", "20"])`` (``inlet_batch.run_trace_save`` twice at
+   lc=0.04 with 200 x 200 reverse seeds: Re=10 cold through the coarse-to-
+   fine route, Re=20 warm from it; each writes its XDMF pair, re-reads
+   the velocity, traces it and writes the SVG figures and CSVs), then
+   ``streamtrace_cli.main`` on the Re=10 checkpoint (50 x 50 seeds),
+   ``ns_channel.main(["10", circle, "0.5", "0.04"])``,
+   ``stokes_channel.main([circle, "0.5", "0.1"])`` and
+   ``compare_images.main`` on phase 4's outlet image against itself.
+   Checks: both sweep runs converged, Re=20 without a coarse phase; every
+   ``.h5`` read back by ``io.xdmf.read_xdmf_function`` equals its field
+   and mesh bit for bit; Re=10's velocity within rel-L2 1e-6 of
+   channel_ns_prod.npz; its rev_seeds.csv within 1e-6 of trace_prod.npz's
+   seeds and its final_output.csv within 0.2% of the fixture's outlet
+   points; Re=20 within rel-L2 1e-6 of phase 6's; every output file
+   written and every SVG well formed; streamtrace_cli's CSVs within atol
+   1e-6 of a 50 x 50 trace of the in-memory Re=10 field; ns_channel
+   converged; the Stokes channel converged and within rel-L2 1e-6 of
+   stokes_channel.npz; compare_images' difference panel all zero; K1 and
+   K2 launched; neither h5py nor matplotlib imported.  Prints, beside the
+   card's name and power limit, each run's io_write_s (both files),
+   io_read_s and file sizes, each CLI's wall and its split (solve, I/O,
+   inlet, trace, figures, other) and the K1 and K2 launches by pair;
+18. prints one JSON line of kernel results (error: the largest over the
    levels checked in phases 2, 11 and 14; times, bound and library time:
    level 0 of the channel with the mask fused, as the solve calls it, L2
    flushed; ``ms_b2b`` back to back, ``ms_unmasked`` flushed without the
@@ -161,6 +185,7 @@
    ``launches_tfqmr``: phase 7's for every pair; ``launches_f32``:
    phase 16's; ``launches_dfg3d``:
    phase 11's solve; ``launches_sharded``: phase 14's sharded solve;
+   ``launches_apps``: phase 17's entry points (K1 and K2);
    ``ms_dfg3d``, ``bound_ms_dfg3d``: level 0 of the pillar operator,
    masked, flushed; ``ms_slab``, ``bound_ms_slab``: the slab operand of
    phase 14, likewise; for K2: the largest error over phase 15's levels
@@ -675,7 +700,8 @@ def check_trace_arithmetic(torch, np, sol, inlet1, device):
 
 
 def run_warm_sweep(torch, np, img, sol, device):
-    """Phase 6: the Reynolds-sweep warm path from phase 3's solution."""
+    """Phase 6: the Reynolds-sweep warm path from phase 3's solution.
+    Returns the Re=20 solution."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
@@ -703,6 +729,7 @@ def run_warm_sweep(torch, np, img, sol, device):
         raise RuntimeError(f"the warm solve ran coarse phases {coarse}")
     if launches <= 0:
         raise RuntimeError("the warm solve never launched K1")
+    return sol20
 
 
 def run_tfqmr_main_path(torch, np, img, device):
@@ -1657,6 +1684,337 @@ def run_f32_main_path(torch, np, img, device, f64_wall):
     return k1, k2
 
 
+APPS_SEEDS_CLI = 50        # streamtrace_cli's grid (streamtrace.py:668)
+
+
+class _Clock:
+    """Host seconds by label of the module functions it wraps.  Every
+    wrapped call returns host arrays (numpy), so its device work is done
+    when it returns."""
+
+    def __init__(self):
+        self.s: dict = {}
+        self._undo: list = []
+
+    def wrap(self, module, name: str, label: str, keep=None):
+        fn = getattr(module, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self.s[label] = (self.s.get(label, 0.0)
+                                 + time.perf_counter() - t0)
+            if keep is not None:
+                keep.append(out)
+            return out
+
+        setattr(module, name, timed)
+        self._undo.append((module, name, fn))
+
+    def take(self) -> dict:
+        out, self.s = self.s, {}
+        return out
+
+    def restore(self) -> None:
+        for module, name, fn in reversed(self._undo):
+            setattr(module, name, fn)
+        self._undo = []
+
+
+def _split(split: dict, wall: float) -> str:
+    parts = {k: round(v, 4) for k, v in split.items()}
+    parts["other"] = round(wall - sum(split.values()), 4)
+    return json.dumps(parts)
+
+
+def _mb(path: str) -> float:
+    return os.path.getsize(path) / 1e6
+
+
+def _launch_delta(before, after) -> dict:
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n - before.get(k, 0)}
+
+
+def _check_round_trip(np, base, name, mesh, values, what):
+    """The checkpoint ``base`` read back by the port equals the field and
+    its mesh bit for bit; returns (the read's seconds, the .h5's MB)."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.io.xdmf import (
+        read_xdmf_function)
+
+    t0 = time.perf_counter()
+    mesh_r, vals = read_xdmf_function(base, name)
+    read_s = time.perf_counter() - t0
+    want = np.asarray(values, np.float64)
+    _bar(vals.dtype == np.float64 and vals.shape == want.shape
+         and vals.tobytes() == want.tobytes()
+         and np.array_equal(mesh_r.cells, mesh.cells)
+         and mesh_r.points.tobytes() == mesh.points.tobytes(),
+         f"{what}: {os.path.basename(base)}.h5 read back equals the field "
+         f"and mesh bit for bit")
+    return read_s, _mb(base + ".h5")
+
+
+def _parse_svgs(folder, names, what) -> None:
+    import xml.etree.ElementTree as ET
+
+    for name in names:
+        try:
+            ET.parse(os.path.join(folder, name))
+        except (OSError, ET.ParseError) as e:
+            raise RuntimeError(f"{what}: {name} does not parse ({e})") from e
+    _bar(True, f"{what}: {', '.join(names)} parse")
+
+
+def run_apps(torch, np, img, sol20_phase6, card, device):
+    """Phase 17: the port's entry points on the card, through their own
+    XDMF write and re-read, trace, figures and CSVs: ``sweep re`` (two
+    ``inlet_batch.run_trace_save`` runs), ``streamtrace_cli``,
+    ``ns_channel``, ``stokes_channel`` and ``compare_images``.  Returns
+    the (K1, K2) launches of the path by pair."""
+    import shutil
+
+    from PIL import Image
+
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import (
+        compare_images, inlet_batch, ns_channel, stokes_channel,
+        streamtrace_cli, sweep)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
+        solve_inlet_profiles)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
+        for_and_rev_streamtrace)
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke", "apps")
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {n: os.path.join(root, n) for n in
+            ("sweep", "cli", "ns_channel", "stokes_channel", "compare")}
+    for d in dirs.values():
+        os.makedirs(d)
+    fx = np.load(TRACE_FIXTURE)
+    w_ref = np.load(FIXTURE)["w"]
+    cwd = os.getcwd()
+    clock = _Clock()
+    runs, walls, splits, k1_by_cli, k2_by_cli = [], {}, {}, {}, {}
+
+    def counts():
+        return (dict(layered_spmv.LAUNCHES_BY_DTYPES),
+                dict(plane_gs.LAUNCHES_BY_DTYPES))
+
+    def cli(name, fn):
+        os.chdir(dirs[name])
+        before = counts()
+        clock.take()
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        after = counts()
+        k1_by_cli[name] = _launch_delta(before[0], after[0])
+        k2_by_cli[name] = _launch_delta(before[1], after[1])
+        splits[name] = clock.take()
+        return out
+
+    run_trace_save = sweep.run_trace_save
+
+    def timed_run(Re, *args, **kwargs):
+        clock.take()
+        t0 = time.perf_counter()
+        out = run_trace_save(Re, *args, **kwargs)
+        runs.append(dict(Re=Re, out=out, wall=time.perf_counter() - t0,
+                         split=clock.take()))
+        return out
+
+    stokes_res = []
+    layered_spmv.reset_launches()
+    plane_gs.reset_launches()
+    try:
+        for module in (inlet_batch, ns_channel):
+            clock.wrap(module, "solve_ns_flow", "solve")
+            clock.wrap(module, "save_navier_stokes_solution", "io_write")
+        clock.wrap(stokes_channel, "solve_stokes_channel", "solve",
+                   keep=stokes_res)
+        clock.wrap(stokes_channel, "write_xdmf_function", "io_write")
+        for module in (inlet_batch, streamtrace_cli):
+            clock.wrap(module, "read_xdmf_function", "io_read")
+            clock.wrap(module, "solve_inlet_profiles", "inlet")
+            clock.wrap(module, "for_and_rev_streamtrace", "trace")
+            clock.wrap(module, "save_trace_figures", "figures")
+        sweep.run_trace_save = timed_run
+        try:
+            cli("sweep", lambda: sweep.main(
+                ["re", img, f"{RE:g}", f"{RE_WARM:g}"]))
+        finally:
+            sweep.run_trace_save = run_trace_save
+        (sol10, _, folder10), (sol20, _, folder20) = (
+            r["out"] for r in runs)
+        folder10 = os.path.join(dirs["sweep"], folder10)
+        folder20 = os.path.join(dirs["sweep"], folder20)
+        img_copy = shutil.copy(img, os.path.join(dirs["cli"], "circle.png"))
+        res_cli = cli("cli", lambda: streamtrace_cli.main(
+            [img_copy, os.path.join(folder10, "Re10ChannelVelocity"),
+             "Velocity"]))
+        sol_ns, folder_ns = cli("ns_channel", lambda: ns_channel.main(
+            [f"{RE:g}", img, f"{RATIO:g}", f"{LC:g}"]))
+        folder_ns = os.path.join(dirs["ns_channel"], folder_ns)
+        mesh_s, _, u_s, p_s = cli("stokes_channel",
+                                  lambda: stokes_channel.main(
+                                      [img, f"{RATIO:g}", "0.1"]))
+        outlet = os.path.join(ROOT, "build", "chip_smoke", "outlet.png")
+        cmp_png = cli("compare", lambda: compare_images.main(
+            [outlet, outlet, os.path.join(dirs["compare"], "compare.png")]))
+    finally:
+        clock.restore()
+        os.chdir(cwd)
+    k1, k2 = counts()
+
+    print(f"phase 17 on {card}", flush=True)
+    # the sweep: Re=10 cold through the apps' route, Re=20 warm from it
+    for r, folder in zip(runs, (folder10, folder20)):
+        sol, res, _ = r["out"]
+        re_i = int(r["Re"])
+        vel = os.path.join(folder, f"Re{re_i}ChannelVelocity")
+        prs = os.path.join(folder, f"Re{re_i}ChannelPressure")
+        read_s, mb_u = _check_round_trip(np, vel, "Velocity", sol.mesh,
+                                         sol.u, f"sweep Re={re_i}")
+        _, mb_p = _check_round_trip(np, prs, "Pressure", sol.mesh, sol.p,
+                                    f"sweep Re={re_i}")
+        print(f"sweep Re={re_i}: run_trace_save {r['wall']:.3f} s wall, "
+              f"split {_split(r['split'], r['wall'])}; io_write_s "
+              f"{r['split']['io_write']:.4f}, io_read_s "
+              f"{r['split']['io_read']:.4f} (a second read "
+              f"{read_s:.4f}); Re{re_i}ChannelVelocity.h5 {mb_u:.3f} MB, "
+              f"Re{re_i}ChannelPressure.h5 {mb_p:.3f} MB; outlet points "
+              f"{len(res.outlet_points)}; Newton steps {sol.newton_iters}, "
+              f"converged {sol.converged} ({card})", flush=True)
+        _bar(bool(sol.converged) and np.isfinite(sol.w).all(),
+             f"sweep Re={re_i} converged")
+        svgs = ["inner_contour.svg", "inner_mesh.svg",
+                f"rev_trace_circle_{NUM_SEEDS}.svg"]
+        files = [f"Re{re_i}Channel{n}.{x}" for n in ("Velocity", "Pressure")
+                 for x in ("xdmf", "h5")] + [
+            "RunParameters.txt", "final_output.csv", "rev_seeds.csv"] + svgs
+        missing = [f for f in files
+                   if not os.path.exists(os.path.join(folder, f))]
+        _bar(not missing, f"sweep Re={re_i}: every output file written "
+                          f"(missing {missing})")
+        _parse_svgs(folder, svgs, f"sweep Re={re_i}")
+    _bar("coarse_ns" not in sol20.timings,
+         "sweep Re=20 took the warm path (no coarse_ns)")
+
+    u_ref, _ = sol10.space.split(w_ref)
+    rel = _rel(np, sol10.u, u_ref)
+    print(f"sweep Re=10 velocity vs channel_ns_prod.npz: rel-L2 {rel:.3e} "
+          f"(bar 1e-6)", flush=True)
+    _bar(rel < 1e-6, "sweep Re=10 velocity within rel-L2 1e-6 of "
+                     "channel_ns_prod.npz")
+    seeds = np.loadtxt(os.path.join(folder10, "rev_seeds.csv"),
+                       delimiter=",")
+    outlet_rows = np.loadtxt(os.path.join(folder10, "final_output.csv"),
+                             delimiter=",", ndmin=2)
+    same_shape = seeds.shape == fx["seeds"].shape
+    d_seeds = float(np.abs(seeds - fx["seeds"]).max()) if same_shape \
+        else np.inf
+    n_out, n_ref = len(outlet_rows), len(fx["outlet_points"])
+    print(f"sweep Re=10 rev_seeds.csv vs trace_prod.npz seeds: shape "
+          f"{seeds.shape}, max abs {d_seeds:.3e}, bitwise "
+          f"{same_shape and np.array_equal(seeds, fx['seeds'])}; "
+          f"final_output.csv {n_out} outlet points (fixture {n_ref})",
+          flush=True)
+    _bar(same_shape and d_seeds <= 1e-6,
+         "rev_seeds.csv equals trace_prod.npz's seeds (atol 1e-6, the "
+         "trace's tolerance)")
+    _bar(abs(n_out - n_ref) <= 2e-3 * n_ref,
+         "final_output.csv outlet points within 0.2% of trace_prod.npz")
+    rel = _rel(np, sol20.u, sol20_phase6.u)
+    print(f"sweep Re=20 (warm) vs phase 6's warm Re=20: rel-L2 {rel:.3e} "
+          f"(bar 1e-6)", flush=True)
+    _bar(rel < 1e-6, "sweep Re=20 within rel-L2 1e-6 of phase 6's")
+
+    # streamtrace_cli on the Re=10 checkpoint against the in-memory field
+    inlet1, _ = solve_inlet_profiles(img, RATIO, DEFAULT)
+    ref = for_and_rev_streamtrace(APPS_SEEDS_CLI, img, sol10.mesh, sol10.u,
+                                  inlet1.mesh.points, DEFAULT, device=device)
+    worst = {}
+    for name, want in (("rev_seeds.csv", ref.seeds),
+                       ("final_output.csv", ref.outlet_points)):
+        got = np.loadtxt(os.path.join(dirs["cli"], name), delimiter=",",
+                         ndmin=2)
+        worst[name] = (float(np.abs(got - want).max())
+                       if got.shape == want.shape and len(got) else np.inf)
+        print(f"streamtrace_cli {name}: {got.shape} vs in-memory "
+              f"{want.shape}, max abs {worst[name]:.3e} (atol 1e-6)",
+              flush=True)
+    _parse_svgs(dirs["cli"], ["inner_contour.svg", "inner_mesh.svg",
+                              f"rev_trace_circle_{APPS_SEEDS_CLI}.svg"],
+                "streamtrace_cli")
+    _bar(len(res_cli.seeds) == APPS_SEEDS_CLI ** 2
+         and max(worst.values()) <= 1e-6,
+         "streamtrace_cli's CSVs: the in-memory trace's shapes, within "
+         "atol 1e-6")
+
+    # ns_channel and stokes_channel: the XDMF pairs read back bitwise
+    read_ns = [_check_round_trip(
+        np, os.path.join(folder_ns, f"Re10Channel{n}"), n, sol_ns.mesh, v,
+        "ns_channel") for n, v in (("Velocity", sol_ns.u),
+                                   ("Pressure", sol_ns.p))]
+    rel = _rel(np, sol_ns.w, w_ref) if sol_ns.w.shape == w_ref.shape \
+        else np.inf
+    print(f"ns_channel: converged {sol_ns.converged}, Newton steps "
+          f"{sol_ns.newton_iters}, rel-L2 vs channel_ns_prod.npz {rel:.3e} "
+          f"(coarse_Re=1 route; for information); .h5 "
+          f"{read_ns[0][1]:.3f} + {read_ns[1][1]:.3f} MB", flush=True)
+    _bar(bool(sol_ns.converged) and np.isfinite(sol_ns.w).all(),
+         "ns_channel converged")
+    ((_, _, _, _, res_s),) = stokes_res
+    read_st = [_check_round_trip(
+        np, os.path.join(dirs["stokes_channel"], f"StokesChannel{n}"), n,
+        mesh_s, v, "stokes_channel") for n, v in (("Velocity", u_s),
+                                                  ("Pressure", p_s))]
+    channel_fx = np.load(BCSR_FIXTURES[2])
+    rel = _rel(np, res_s.x.cpu().numpy(), channel_fx["w"])
+    print(f"stokes_channel: converged {res_s.converged}, FGMRES its "
+          f"{res_s.iters}, rel-L2 vs stokes_channel.npz {rel:.3e} (bar "
+          f"1e-6); .h5 {read_st[0][1]:.3f} + {read_st[1][1]:.3f} MB",
+          flush=True)
+    _bar(bool(res_s.converged) and rel < 1e-6,
+         "stokes_channel converged, within rel-L2 1e-6 of "
+         "stokes_channel.npz")
+
+    # compare_images: an outlet image against itself
+    sim = np.asarray(Image.open(outlet).convert("RGB"))
+    crops = [compare_images.autocrop(sim), compare_images.autocrop(
+        compare_images.remove_gray_background(sim))]
+    size = (max(c.shape[1] for c in crops), max(c.shape[0] for c in crops))
+    diff = np.asarray(Image.open(cmp_png).convert("RGB").crop(
+        compare_images.panel_boxes(size)[2]))
+    _bar(os.path.exists(cmp_png) and diff.size > 0 and not diff.any(),
+         "compare_images wrote its PNG; the difference panel is all zero")
+
+    splits["sweep"] = {k: sum(r["split"].get(k, 0.0) for r in runs)
+                       for k in runs[0]["split"]}
+    for name, wall in walls.items():
+        print(f"{name}: {wall:.3f} s wall, split "
+              f"{_split(splits[name], wall)}, K1 launches "
+              f"{_by_pair(k1_by_cli[name])}, K2 launches "
+              f"{_by_pair(k2_by_cli[name])} ({card})", flush=True)
+    print(f"apps path: K1 launches {layered_spmv.LAUNCHES} {_by_pair(k1)}; "
+          f"K2 launches {plane_gs.LAUNCHES} {_by_pair(k2)} ({card})",
+          flush=True)
+    _bar(layered_spmv.LAUNCHES > 0 and plane_gs.LAUNCHES > 0,
+         "the apps path launched K1 and K2")
+    loaded = [m for m in ("h5py", "matplotlib") if m in sys.modules]
+    _bar(not loaded, f"neither h5py nor matplotlib imported ({loaded})")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({card})",
+          flush=True)
+    return k1, k2
+
+
 def _by_pair(launches) -> dict:
     return {f"{str(v).removeprefix('torch.')} values, "
             f"{str(x).removeprefix('torch.')} x": n
@@ -1690,8 +2048,9 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi: {smi.stderr.strip()}")
+    print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on {kind}",
           flush=True)
@@ -1717,7 +2076,7 @@ def main() -> int:
                                                          device)
         inlet1 = run_trace(torch, np, img, sol, device)
         check_trace_arithmetic(torch, np, sol, inlet1, device)
-        run_warm_sweep(torch, np, img, sol, device)
+        sol20 = run_warm_sweep(torch, np, img, sol, device)
         tfqmr_launches = run_tfqmr_main_path(torch, np, img, device)
         run_bcsr_cases(torch, np, img, device)
         run_dfg2d(torch, np, device)
@@ -1729,6 +2088,8 @@ def main() -> int:
         k2_checks, k2_bf16 = run_plane_gs(torch, np, img, device)
         f32_launches, k2_f32 = run_f32_main_path(torch, np, img, device,
                                                  f64_wall)
+        apps_launches, k2_apps = run_apps(torch, np, img, sol20, card,
+                                          device)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
@@ -1736,8 +2097,9 @@ def main() -> int:
         return fail(str(e))
     by_path = {"main": launches, "tfqmr": tfqmr_launches,
                "dfg3d": dfg3d_launches, "sharded": sharded_launches,
-               "f32": f32_launches}
-    k2_by_path = {"main": k2_main, "mg_bf16": k2_bf16, "f32": k2_f32}
+               "f32": f32_launches, "apps": apps_launches}
+    k2_by_path = {"main": k2_main, "mg_bf16": k2_bf16, "f32": k2_f32,
+                  "apps": k2_apps}
     on_pillar = {c["pair"]: c for c in dfg3d_checks}
     on_slab = {c["pair"]: c for c in slab_checks}
 
@@ -1766,6 +2128,7 @@ def main() -> int:
         launches_f32=count(c, "f32"),
         launches_dfg3d=count(c, "dfg3d"),
         launches_sharded=count(c, "sharded"),
+        launches_apps=count(c, "apps"),
         max_abs_err=max(c["max_abs_err"],
                         on_pillar.get(c["pair"], c)["max_abs_err"],
                         on_slab.get(c["pair"], c)["max_abs_err"]),
@@ -1788,6 +2151,8 @@ def main() -> int:
         launches=k2_by_path[path].get(
             (getattr(torch, vname), getattr(torch, aname)), 0),
         path=path,
+        launches_apps=k2_apps.get(
+            (getattr(torch, vname), getattr(torch, aname)), 0),
         max_abs_err=max(k2_checks[(vname, aname)]["errs"]),
         ms=k2_checks[(vname, aname)]["ms"],
         plain_ms=k2_checks[(vname, aname)]["plain_ms"],

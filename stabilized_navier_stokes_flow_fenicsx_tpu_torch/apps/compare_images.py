@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``apps/compare_images.py`` (numpy and
 PIL only), a port of reference NavierStokes/noether_data/compareImages.py:
 remove the gray background, auto-crop both images to their content
 bounding boxes (ImageChops-diff style), resize to common dimensions, and
-save an overlay + absolute-difference subplot PNG.  The figure needs
-matplotlib; it runs on the host, no device involved.
+save a PNG of three panels side by side under their titles: simulated,
+overlay, absolute difference.  The figure is composed with PIL at the
+images' own resolution; it runs on the host, no device involved.
 
     python -m stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps.compare_images \
         <simulated.png> <experiment.png> [out.png]
@@ -16,6 +17,9 @@ from __future__ import annotations
 import sys
 
 import numpy as np
+
+PAD, TITLE_H = 10, 20            # pixels around and above the panels
+TITLES = ("simulated", "overlay", "abs diff")
 
 
 def remove_gray_background(img: np.ndarray, tol: int = 30) -> np.ndarray:
@@ -44,12 +48,16 @@ def autocrop(img: np.ndarray, bg: int = 255, margin: int = 2) -> np.ndarray:
     return img[r0:r1, c0:c1]
 
 
-def compare_images(sim_path: str, exp_path: str, out_path: str = "compare.png"):
-    import matplotlib
+def panel_boxes(size):
+    """(left, top, right, bottom) of the three panels of an image of
+    ``size`` = (width, height) in the figure."""
+    w, h = size
+    return [(PAD + i * (w + PAD), TITLE_H + PAD,
+             PAD + i * (w + PAD) + w, TITLE_H + PAD + h) for i in range(3)]
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    from PIL import Image
+
+def compare_images(sim_path: str, exp_path: str, out_path: str = "compare.png"):
+    from PIL import Image, ImageDraw
 
     sim = np.asarray(Image.open(sim_path).convert("RGB"))
     exp = np.asarray(Image.open(exp_path).convert("RGB"))
@@ -64,15 +72,15 @@ def compare_images(sim_path: str, exp_path: str, out_path: str = "compare.png"):
     overlay = (0.5 * sim_r.astype(float) + 0.5 * exp_r.astype(float))
     absdiff = np.abs(sim_r.astype(int) - exp_r.astype(int)).astype(np.uint8)
 
-    fig, axes = plt.subplots(1, 3, figsize=(12, 4))
-    for ax, im, title in zip(
-            axes, [sim_r, overlay.astype(np.uint8), absdiff],
-            ["simulated", "overlay", "abs diff"]):
-        ax.imshow(im)
-        ax.set_title(title)
-        ax.axis("off")
-    fig.savefig(out_path, dpi=150, bbox_inches="tight")
-    plt.close(fig)
+    boxes = panel_boxes(size)
+    fig = Image.new("RGB", (boxes[-1][2] + PAD, boxes[-1][3] + PAD), "white")
+    draw = ImageDraw.Draw(fig)
+    for box, im, title in zip(
+            boxes, [sim_r, overlay.astype(np.uint8), absdiff], TITLES):
+        fig.paste(Image.fromarray(im), box[:2])
+        x = (box[0] + box[2] - draw.textlength(title)) / 2
+        draw.text((x, PAD // 2), title, fill="black")
+    fig.save(out_path)
     return out_path
 
 

@@ -6,8 +6,8 @@ Reference NavierStokes/InletBatchScript.py: run with
     python -m stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps.inlet_batch \\
         <Re> <img> <ratio> [<lc>]
 num_seeds=200, limits=1 per InletBatchScript.py:41-42.  The checkpoint
-round-trip writes and re-reads XDMF/HDF5, so this app needs h5py (and
-matplotlib for the figures).
+round-trip writes and re-reads XDMF/HDF5 through io/xdmf.py and the
+figures are SVG text, so the app needs neither h5py nor matplotlib.
 """
 
 from __future__ import annotations

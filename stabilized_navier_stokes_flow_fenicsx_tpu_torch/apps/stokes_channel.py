@@ -5,7 +5,7 @@ StokesFlow/StokesChannelFlow.py:33-210 — the earlier serial pipeline:
 inlet profiles -> 3D channel mesh -> stabilized P1-P1 Stokes (bcgs,
 rtol/atol 1e-10) -> norm printouts + XDMF save.  The solve runs on the
 card (``device="cpu"`` runs it on the CPU) on the block-CSR path; the XDMF
-save needs h5py.
+pair is written to the working directory.
 
     python -m stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps.stokes_channel \\
         <img_fname> <flowrate_ratio> [<channel_mesh_size>]

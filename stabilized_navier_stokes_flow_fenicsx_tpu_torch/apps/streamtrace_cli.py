@@ -3,8 +3,8 @@
 Reference NavierStokes/streamtrace.py:667-690 main():
     streamtrace_cli.py <img_fname> <solname> <funcname>
 solname is the XDMF basename (without extension); funcname is usually
-"Velocity".  num_seeds=50, limits=0.5 (:668-669).  Reads XDMF/HDF5, so
-this app needs h5py (and matplotlib for the figures).
+"Velocity".  num_seeds=50, limits=0.5 (:668-669).  Reads XDMF/HDF5
+through io/xdmf.py and writes SVG figures (no h5py, no matplotlib).
 
     python -m stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps.streamtrace_cli \\
         <img> <solname> Velocity

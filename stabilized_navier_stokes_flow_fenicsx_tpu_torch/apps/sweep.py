@@ -10,7 +10,7 @@ replaces the MPI job; runs are sequential.
     python -m stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps.sweep \\
         img <img_dir> [Re]           # default 10
 
-Each run is apps/inlet_batch.py's, so sweeps need h5py too.
+Each run is apps/inlet_batch.py's.
 """
 
 from __future__ import annotations

@@ -6,16 +6,21 @@ functions named "Pressure"/"Velocity") and the h5py + adios4dolfinx
 re-read path (reference streamtrace.py:58-130).  The HDF5 layout keeps the
 reference reader's ``Function/<name>/0`` dataset path, so the solution
 files double as checkpoints: solve and streamtrace can run as separate
-jobs exactly like the reference (streamtrace.py:667-690).
+jobs exactly like the reference (streamtrace.py:667-690).  The ``.h5``
+files are written and read by ``io/hdf5.py`` (numpy only), in the format
+h5py writes by default, which the HDF5 library reads.
 """
 
 from __future__ import annotations
 
+import os
+import re
 from typing import Tuple
 
 import numpy as np
 
 from ..mesh.core import SimplexMesh
+from .hdf5 import Hdf5Reader, Hdf5Writer, write_hdf5
 
 _TOPOLOGY_TYPE = {"triangle": "Triangle", "tetrahedron": "Tetrahedron"}
 
@@ -46,20 +51,14 @@ def write_xdmf_function(
     name: str,
 ) -> str:
     """Write <basename>.xdmf + <basename>.h5 with one nodal function."""
-    import os
-
-    import h5py
-
     values = np.asarray(values, dtype=np.float64)
     if values.ndim == 1:
         values = values[:, None]
     vs = values.shape[1]
     h5name = basename + ".h5"
-    with h5py.File(h5name, "w") as f:
-        f.create_dataset("Mesh/mesh/topology",
-                         data=mesh.cells.astype(np.int64))
-        f.create_dataset("Mesh/mesh/geometry", data=mesh.points)
-        f.create_dataset(f"Function/{name}/0", data=values)
+    write_hdf5(h5name, {"Mesh/mesh/topology": mesh.cells.astype(np.int64),
+                        "Mesh/mesh/geometry": mesh.points,
+                        f"Function/{name}/0": values})
     xml = _XDMF_TEMPLATE.format(
         topo=_TOPOLOGY_TYPE[mesh.cell],
         nc=mesh.n_cells,
@@ -82,12 +81,10 @@ def read_xdmf_function(basename: str, name: str
     """Read (mesh, nodal values) back — the reference's
     read_mesh_and_function (streamtrace.py:58-130), minus the MPI
     redistribution dance (single address space)."""
-    import h5py
-
-    with h5py.File(basename + ".h5", "r") as f:
-        topo = np.asarray(f["Mesh/mesh/topology"])
-        geom = np.asarray(f["Mesh/mesh/geometry"])
-        vals = np.asarray(f[f"Function/{name}/0"])
+    with Hdf5Reader(basename + ".h5") as f:
+        topo = f.read("Mesh/mesh/topology")
+        geom = f.read("Mesh/mesh/geometry")
+        vals = f.read(f"Function/{name}/0")
     cell = "tetrahedron" if topo.shape[1] == 4 else "triangle"
     mesh = SimplexMesh(cell, geom, topo.astype(np.int32))
     if vals.shape[1] == 1:
@@ -133,16 +130,13 @@ class XdmfTimeSeries:
     flow."""
 
     def __init__(self, basename: str, mesh: SimplexMesh, name: str):
-        import h5py
-
         self.basename = basename
         self.name = name
         self.mesh = mesh
         self.times = []
-        self._h5 = h5py.File(basename + ".h5", "w")
-        self._h5.create_dataset("Mesh/mesh/topology",
-                                data=mesh.cells.astype(np.int64))
-        self._h5.create_dataset("Mesh/mesh/geometry", data=mesh.points)
+        self._h5 = Hdf5Writer(basename + ".h5")
+        self._h5.write("Mesh/mesh/topology", mesh.cells.astype(np.int64))
+        self._h5.write("Mesh/mesh/geometry", mesh.points)
         self._vs = None
 
     def append(self, values: np.ndarray, t: float) -> None:
@@ -151,14 +145,12 @@ class XdmfTimeSeries:
             values = values[:, None]
         self._vs = values.shape[1]
         it = len(self.times)
-        self._h5.create_dataset(f"Function/{self.name}/{it}", data=values)
+        self._h5.write(f"Function/{self.name}/{it}", values)
         self._h5.flush()
         self.times.append(float(t))
         self._write_xml()
 
     def _write_xml(self) -> None:
-        import os
-
         mesh = self.mesh
         grids = "".join(
             _SERIES_GRID.format(
@@ -188,18 +180,15 @@ class XdmfTimeSeries:
 def read_xdmf_series(basename: str, name: str
                      ) -> Tuple[SimplexMesh, np.ndarray, np.ndarray]:
     """Read (mesh, values (nt, nn, vs), times) from a series file."""
-    import re
-
-    import h5py
-
-    with h5py.File(basename + ".h5", "r") as f:
-        topo = np.asarray(f["Mesh/mesh/topology"])
-        geom = np.asarray(f["Mesh/mesh/geometry"])
-        keys = sorted(f[f"Function/{name}"].keys(), key=int)
-        vals = np.stack([np.asarray(f[f"Function/{name}/{k}"])
-                         for k in keys])
-    times = [float(m.group(1)) for m in re.finditer(
-        r'<Time Value="([^"]+)"', open(basename + ".xdmf").read())]
+    with Hdf5Reader(basename + ".h5") as f:
+        topo = f.read("Mesh/mesh/topology")
+        geom = f.read("Mesh/mesh/geometry")
+        keys = sorted(f.keys(f"Function/{name}"), key=int)
+        vals = np.stack([f.read(f"Function/{name}/{k}") for k in keys])
+    with open(basename + ".xdmf") as fx:
+        xml = fx.read()
+    times = [float(m.group(1))
+             for m in re.finditer(r'<Time Value="([^"]+)"', xml)]
     cell = "tetrahedron" if topo.shape[1] == 4 else "triangle"
     mesh = SimplexMesh(cell, geom, topo.astype(np.int32))
     return mesh, vals, np.asarray(times)

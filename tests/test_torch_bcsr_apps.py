@@ -10,8 +10,10 @@ the CPU in float64.
   ``lid_driven`` at n=8, through their ``main`` (argv contract and
   printouts), against the JAX apps: relative 1e-8, the same printed lines.
 * ``compare_images``: ``remove_gray_background`` and ``autocrop``
-  identical to JAX on a seeded RGB image; the full figure where
-  matplotlib imports.
+  identical to JAX on a seeded RGB image; the figure's three panels
+  (simulated, overlay, abs diff) equal to those the JAX package's
+  functions give (the port composes the figure with PIL, the JAX package
+  with matplotlib, so the two PNGs differ outside the panels).
 
 Refinement (``refine="on"``, float32 solves) is tests/test_torch_refine.py.
 """
@@ -48,7 +50,8 @@ from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (  # no
     solve_newton_bcsr)
 
 from parity_fixtures import CAVITY, CHANNEL, DUCT, FIXTURE_DIR  # noqa: E402
-from torch_cases import channel_image, rel_l2  # noqa: E402
+from torch_cases import (  # noqa: E402
+    channel_image, compare_panels, figure_panels, rel_l2)
 
 
 def _printed(fn, *args, **kwargs):
@@ -139,13 +142,13 @@ def test_compare_images_matches_jax(tmp_path):
     assert np.array_equal(crop, jax_compare_images.autocrop(clean))
     assert crop.shape[:2] < img.shape[:2]
 
-    pytest.importorskip("matplotlib")
     from PIL import Image
 
     sim, exp = str(tmp_path / "sim.png"), str(tmp_path / "exp.png")
     Image.fromarray(img[::-1].copy()).save(sim)
     Image.fromarray(img).save(exp)
     got = compare_images.main([sim, exp, str(tmp_path / "port.png")])
-    want = jax_compare_images.main([sim, exp, str(tmp_path / "jax.png")])
-    assert np.array_equal(np.asarray(Image.open(got)),
-                          np.asarray(Image.open(want)))
+    size, want = compare_panels(sim, exp)
+    panels = figure_panels(got, size, compare_images.panel_boxes(size))
+    for name, a, b in zip(compare_images.TITLES, panels, want):
+        assert np.array_equal(a, b), name

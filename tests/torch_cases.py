@@ -87,3 +87,33 @@ def split_exact(w, w_lo):
     assert np.array_equal(w64.astype(np.float32), w)
     assert np.array_equal(w64 - w.astype(np.float64), w_lo)
     return w64
+
+
+def compare_panels(sim_path, exp_path):
+    """The three panels of ``compare_images`` (simulated, overlay, abs
+    diff), computed with the JAX package's ``remove_gray_background`` and
+    ``autocrop`` and PIL's resize, as compareImages.py computes them."""
+    from PIL import Image
+
+    from stabilized_navier_stokes_flow_fenicsx_tpu.apps import (
+        compare_images as jax_compare_images)
+
+    sim = np.asarray(Image.open(sim_path).convert("RGB"))
+    exp = jax_compare_images.remove_gray_background(
+        np.asarray(Image.open(exp_path).convert("RGB")))
+    sim_c, exp_c = (jax_compare_images.autocrop(a) for a in (sim, exp))
+    size = (max(sim_c.shape[1], exp_c.shape[1]),
+            max(sim_c.shape[0], exp_c.shape[0]))
+    sim_r, exp_r = (np.asarray(Image.fromarray(a).resize(size)).astype(int)
+                    for a in (sim_c, exp_c))
+    return size, [sim_r.astype(np.uint8),
+                  (0.5 * sim_r + 0.5 * exp_r).astype(np.uint8),
+                  np.abs(sim_r - exp_r).astype(np.uint8)]
+
+
+def figure_panels(png, size, boxes):
+    """The panels cut from a ``compare_images`` figure at ``boxes``."""
+    from PIL import Image
+
+    fig = Image.open(png).convert("RGB")
+    return [np.asarray(fig.crop(box)) for box in boxes]
