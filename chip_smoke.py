@@ -51,9 +51,10 @@
    its Newton ``mg_cheby``); prints TFQMR matvecs per Newton step and the
    wall time;
 8. runs the block-CSR path at the reference's sizes, each case against
-   its bar: the Ghia cavity ``solve_lid_driven(32, 100)`` (<= 12 Newton
-   steps, centreline u_min in (-0.25, -0.14), corner pressure within
-   1e-12 of 0; tests/test_cavity.py); the cavity at n=24 with the
+   its bar: the Ghia cavity as its CLI runs it, ``lid_driven.main(["32",
+   "100"])`` (phase 18's case, held to the JAX package's results; <= 12
+   Newton steps, centreline u_min in (-0.25, -0.14), corner pressure
+   within 1e-12 of 0; tests/test_cavity.py); the cavity at n=24 with the
    fixture's solver settings against tests/fixtures/cavity_ns.npz; the
    duct SUPS Navier-Stokes problem of tests/parity_fixtures.py, built
    with the port's modules, against tests/fixtures/duct_ns.npz (both
@@ -68,8 +69,9 @@
    information, ``bcsr_matvec`` on that channel's Stokes matrix against
    a ``torch.sparse_bsr_tensor`` product of the same values (both L2
    flushed) and their byte bound;
-9. DFG 2D-1, ``apps.dfg2d.solve_dfg2d(0.35)`` (17,283 nodes, 51,849
-   dofs; device assembly, host SuperLU Newton updates) against the bars
+9. DFG 2D-1 as its CLI runs it, ``apps.dfg2d.main(["0.35"])`` (phase
+   18's case; 17,283 nodes, 51,849 dofs; device assembly, host SuperLU
+   Newton updates) against the bars
    of tests/test_dfg.py: converged, Cd within 1% and Cl within 3% of the
    literature values, both surface-integral coefficients within 3%;
    prints nodes, Newton steps per rung, Cd, Cl and the wall split (mesh,
@@ -175,7 +177,25 @@
    card's name and power limit, each run's io_write_s (both files),
    io_read_s and file sizes, each CLI's wall and its split (solve, I/O,
    inlet, trace, figures, other) and the K1 and K2 launches by pair;
-18. prints one JSON line of kernel results (error: the largest over the
+18. runs the last validation CLIs and the four examples as a user types
+   them, each in its own directory under build/chip_smoke/cli/, and holds
+   each run to the JAX package's results at the same argv
+   (tests/fixtures/cli_refs.npz, by tests/torch_cli_refs.py::check_case:
+   the printed lines' labels, and the figures of each case to its bar):
+   ``python3 -m <pkg>.apps.dfg3d`` with no argv as a subprocess from the
+   repository root (scale 1.5, the host-LU route: 7,965 velocity dofs, Cd
+   and Cl relative 1e-6 of JAX's, Cd within 2% of 6.18533, exit code 0);
+   ``duct_stokes.main(["12"])`` and ``duct_stokes_th.main(["6"])`` (the
+   uniform inlet, Schur) in process, with no ``device=``; phases 8 and 9
+   ran ``lid_driven.main(["32", "100"])`` and ``dfg2d.main(["0.35"])``
+   and held them the same way; then ``PYTHONPATH=. python3
+   examples/torch_<name>.py u.npy`` for poisson_1d, burgers_1d, laplace_2d
+   and laplace_3d as subprocesses from the repository root, each field
+   relative L2 1e-9 of JAX's.  A subprocess that exits nonzero or times
+   out fails the phase.  Prints each case's wall beside the card's name
+   and power limit.  These routes (block-CSR, host LU, Schur CG, CG) run
+   no hand-written kernel;
+19. prints one JSON line of kernel results (error: the largest over the
    levels checked in phases 2, 11 and 14; times, bound and library time:
    level 0 of the channel with the mask fused, as the solve calls it, L2
    flushed; ``ms_b2b`` back to back, ``ms_unmasked`` flushed without the
@@ -205,6 +225,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -218,6 +239,10 @@ TRACE_FIXTURE = os.path.join(FIXTURES, "trace_prod.npz")
 BCSR_FIXTURES = tuple(os.path.join(FIXTURES, f"{name}.npz") for name in
                       ("cavity_ns", "duct_ns", "stokes_channel"))
 GRAFT_ENTRY = os.path.join(ROOT, "__graft_entry_torch__.py")
+CLI_REFS = os.path.join(FIXTURES, "cli_refs.npz")
+CLI_RULE = os.path.join(ROOT, "tests", "torch_cli_refs.py")
+CLI_ROOT = os.path.join(ROOT, "build", "chip_smoke", "cli")
+DFG3D_CD = 6.18533         # the literature drag of 3D-1Z (tests/test_dfg.py)
 RE, RATIO, LC = 10.0, 0.5, 0.04
 RE_WARM = 20.0
 NUM_SEEDS = 200            # reverse grid per side (InletBatchScript.py:41)
@@ -811,8 +836,82 @@ def _bar(ok: bool, what: str) -> None:
         raise RuntimeError(f"bar missed: {what}")
 
 
-def run_bcsr_cases(torch, np, img, device):
-    """Phase 8: the block-CSR path at the reference's sizes."""
+class CliRuns:
+    """Phase 18's cases: a CLI or example run as a user runs it, in its own
+    working directory under build/chip_smoke/cli/, and held by
+    tests/torch_cli_refs.py::check_case to the JAX package's results at
+    the same argv (tests/fixtures/cli_refs.npz).  ``walls`` keeps each
+    case's wall."""
+
+    def __init__(self):
+        tests = os.path.dirname(CLI_RULE)
+        if tests not in sys.path:
+            sys.path.append(tests)
+        import torch_cli_refs
+
+        self.rule = torch_cli_refs
+        self.refs = torch_cli_refs.load(CLI_REFS)
+        self.walls = {}
+
+    def _workdir(self, name: str) -> str:
+        d = os.path.join(CLI_ROOT, name)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        return d
+
+    def in_process(self, name: str):
+        """``apps/<name>.py``'s ``main(argv)`` at the fixture's argv with no
+        ``device=`` (so on the card, through ``config.default_device``),
+        as the CLI's ``__main__`` calls it; held to JAX's.  Returns what
+        ``main`` returned."""
+        argv = self.refs[name]["argv"]
+        cwd = os.getcwd()
+        os.chdir(self._workdir(name))
+        try:
+            result, lines, wall = self.rule.run_case(PKG, name, argv)
+        finally:
+            os.chdir(cwd)
+        self._hold(name, f"{name}.main({argv})", lines, result, wall)
+        return result
+
+    def command(self, name: str, cmd, shown: str, timeout: float,
+                env=None, field=None):
+        """``cmd`` as a subprocess from the repository root, its output
+        kept in the case's directory; fails unless it exits 0 within
+        ``timeout`` s.  ``field``: the .npy it writes, an example's result.
+        Returns its printed lines."""
+        import numpy as np
+
+        d = self._workdir(name)
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=timeout)
+        wall = time.perf_counter() - t0
+        for stream, text in (("stdout", p.stdout), ("stderr", p.stderr)):
+            with open(os.path.join(d, f"{stream}.txt"), "w") as f:
+                f.write(text)
+        if p.returncode != 0:
+            raise RuntimeError(f"{shown} exited {p.returncode}: "
+                               f"{p.stderr[-3000:]}")
+        lines = p.stdout.splitlines()
+        self._hold(name, f"{shown} (exit 0)", lines,
+                   None if field is None else np.load(field), wall)
+        return lines
+
+    def _hold(self, name, shown, lines, result, wall) -> None:
+        self.walls[name] = wall
+        print(f"{shown}: {wall:.2f} s wall", flush=True)
+        for line in lines:
+            print(f"  | {line}", flush=True)
+        for what, ok, detail in self.rule.check_case(name, lines, result,
+                                                     self.refs):
+            print(f"  {name}: {detail}", flush=True)
+            _bar(ok, f"{name}: {what}")
+
+
+def run_bcsr_cases(torch, np, img, device, cli):
+    """Phase 8: the block-CSR path at the reference's sizes, the Ghia
+    cavity through ``lid_driven.main``."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import (
         duct_stokes, lid_driven, stokes_channel)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.assembly import (
@@ -834,12 +933,11 @@ def run_bcsr_cases(torch, np, img, device):
 
     cavity_fx, duct_fx, channel_fx = (np.load(f) for f in BCSR_FIXTURES)
 
-    t0 = time.perf_counter()
-    r = lid_driven.solve_lid_driven(32, 100.0, device=device)
+    r = cli.in_process("lid_driven")      # lid_driven.main(["32", "100"])
     pts = r.mesh.points
     umin = float(r.u[np.abs(pts[:, 0] - 0.5) < 1e-9, 0].min())
     corner = int(np.argmin(pts[:, 0] ** 2 + pts[:, 1] ** 2))
-    print(f"Ghia cavity n=32 Re=100: {time.perf_counter() - t0:.2f} s, "
+    print(f"Ghia cavity n=32 Re=100: {cli.walls['lid_driven']:.2f} s, "
           f"{len(r.w)} dofs, Newton its {r.newton_iters}, |F| "
           f"{r.newton_resnorm:.3e}, centreline u_min {umin:.4f} (Ghia "
           f"-0.2109), corner p {r.p[corner]:.1e}", flush=True)
@@ -977,14 +1075,13 @@ def bcsr_spmv_yardstick(torch, np, W, device):
     del flush
 
 
-def run_dfg2d(torch, np, device):
-    """Phase 9: DFG 2D-1 at the scale tests/test_dfg.py holds to the
-    literature values."""
+def run_dfg2d(torch, np, cli):
+    """Phase 9: DFG 2D-1 through ``dfg2d.main(["0.35"])``, at the scale
+    tests/test_dfg.py holds to the literature values."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import dfg2d
 
-    t0 = time.perf_counter()
-    r = dfg2d.solve_dfg2d(0.35, device=device)
-    wall = time.perf_counter() - t0
+    r = cli.in_process("dfg2d")
+    wall = cli.walls["dfg2d"]
     print(f"DFG 2D-1 scale 0.35: {wall:.2f} s wall, {r.mesh.n_nodes} nodes, "
           f"{3 * r.mesh.n_nodes} dofs, Newton steps per rung {r.rung_iters}; "
           f"Cd {r.cd:.6f} ({r.cd_err_pct:+.3f}%), Cl {r.cl:.7f} "
@@ -1774,8 +1871,6 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
     ``inlet_batch.run_trace_save`` runs), ``streamtrace_cli``,
     ``ns_channel``, ``stokes_channel`` and ``compare_images``.  Returns
     the (K1, K2) launches of the path by pair."""
-    import shutil
-
     from PIL import Image
 
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import (
@@ -2015,6 +2110,51 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
     return k1, k2
 
 
+def run_clis(torch, cli, card):
+    """Phase 18: the last validation CLIs and the examples as a user types
+    them (phases 8 and 9 ran lid_driven and dfg2d), each held to the JAX
+    package's results at the same argv."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+
+    t_phase = time.perf_counter()
+    print(f"phase 18 on {card}", flush=True)
+    # the subprocesses take the card's memory from this process's cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lines = cli.command(
+        "dfg3d", [sys.executable, "-m", f"{PKG}.apps.dfg3d"],
+        f"python3 -m {PKG}.apps.dfg3d", timeout=900)
+    cd = cli.rule.values("dfg3d", lines)["cd"]
+    _bar(abs(cd - DFG3D_CD) / DFG3D_CD < 0.02,
+         f"dfg3d: Cd {cd:.6f} within 2% of {DFG3D_CD}")
+
+    layered_spmv.reset_launches()
+    plane_gs.reset_launches()
+    cli.in_process("duct_stokes")
+    cli.in_process("duct_stokes_th")
+    print(f"duct_stokes and duct_stokes_th launched K1 "
+          f"{layered_spmv.LAUNCHES} and K2 {plane_gs.LAUNCHES} times (the "
+          f"block-CSR and Schur routes carry no hand-written kernel)",
+          flush=True)
+
+    # the README's command, from the repository root
+    env = dict(os.environ, PYTHONPATH=".")
+    for name in cli.rule.EXAMPLES:
+        script = f"examples/torch_{name}.py"
+        out = os.path.join(CLI_ROOT, name, "u.npy")
+        cli.command(name, [sys.executable, script, out],
+                    f"PYTHONPATH=. python3 {script} {out}", timeout=300,
+                    env=env, field=out)
+
+    print(f"phase 18 walls (s): "
+          f"{json.dumps({n: round(cli.walls[n], 3) for n in cli.rule.CASES})}"
+          f" ({card})", flush=True)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s ({card})",
+          flush=True)
+
+
 def _by_pair(launches) -> dict:
     return {f"{str(v).removeprefix('torch.')} values, "
             f"{str(x).removeprefix('torch.')} x": n
@@ -2031,10 +2171,11 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false: needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(f)
-            for f in (FIXTURE, TRACE_FIXTURE, GRAFT_ENTRY) + BCSR_FIXTURES):
+            for f in (FIXTURE, TRACE_FIXTURE, GRAFT_ENTRY, CLI_REFS,
+                      CLI_RULE) + BCSR_FIXTURES):
         return fail(f"run from a checkout of the repository ({PKG}/, "
-                    f"__graft_entry_torch__.py and tests/fixtures/ beside "
-                    f"this script)")
+                    f"__graft_entry_torch__.py and tests/ beside this "
+                    f"script)")
     sys.path.insert(0, ROOT)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv)
@@ -2070,6 +2211,7 @@ def main() -> int:
     img = make_annulus_image(os.path.join(work, "circle.png"), "circle")
 
     try:
+        cli = CliRuns()
         checks = check_levels(torch, np, k1_levels(torch, np, img, device),
                               PAIRS, device)
         launches, k2_main, sol, f64_wall = run_main_path(torch, np, img,
@@ -2078,8 +2220,8 @@ def main() -> int:
         check_trace_arithmetic(torch, np, sol, inlet1, device)
         sol20 = run_warm_sweep(torch, np, img, sol, device)
         tfqmr_launches = run_tfqmr_main_path(torch, np, img, device)
-        run_bcsr_cases(torch, np, img, device)
-        run_dfg2d(torch, np, device)
+        run_bcsr_cases(torch, np, img, device, cli)
+        run_dfg2d(torch, np, cli)
         run_taylor_hood(torch, np, device)
         dfg3d_checks, dfg3d_launches = run_dfg3d(torch, np, device)
         run_apps_route(torch, np, img, device)
@@ -2090,6 +2232,7 @@ def main() -> int:
                                                  f64_wall)
         apps_launches, k2_apps = run_apps(torch, np, img, sol20, card,
                                           device)
+        run_clis(torch, cli, card)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 

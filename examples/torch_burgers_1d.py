@@ -2,7 +2,11 @@
 (FE_Practice notebook 2 — Newton iteration on a nonlinear form).
 
 PyTorch twin of ``examples/burgers_1d.py``: runs on the card;
-``main(device="cpu")`` runs it on the CPU.
+``main(device="cpu")`` runs it on the CPU.  From the repository root:
+
+    PYTHONPATH=. python3 examples/torch_burgers_1d.py [u.npy]
+
+(the optional path saves the field with ``np.save``).
 """
 
 import numpy as np
@@ -64,4 +68,8 @@ def main(n=128, nu=0.05, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    u = main()
+    if len(sys.argv) > 1:
+        np.save(sys.argv[1], u)

@@ -2,7 +2,11 @@
 left/right edges by Dirichlet BC, natural elsewhere — solution u = x.
 
 PyTorch twin of ``examples/laplace_2d.py``: runs on the card;
-``main(device="cpu")`` runs it on the CPU.
+``main(device="cpu")`` runs it on the CPU.  From the repository root:
+
+    PYTHONPATH=. python3 examples/torch_laplace_2d.py [u.npy]
+
+(the optional path saves the field with ``np.save``).
 """
 
 import numpy as np
@@ -43,4 +47,8 @@ def main(n=32, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    u = main()
+    if len(sys.argv) > 1:
+        np.save(sys.argv[1], u)

@@ -1,7 +1,11 @@
 """3D Laplace on a box (FE_Practice notebook 4): u = x exactly.
 
 PyTorch twin of ``examples/laplace_3d.py``: runs on the card;
-``main(device="cpu")`` runs it on the CPU.
+``main(device="cpu")`` runs it on the CPU.  From the repository root:
+
+    PYTHONPATH=. python3 examples/torch_laplace_3d.py [u.npy]
+
+(the optional path saves the field with ``np.save``).
 """
 
 import numpy as np
@@ -42,4 +46,8 @@ def main(n=8, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    u = main()
+    if len(sys.argv) > 1:
+        np.save(sys.argv[1], u)

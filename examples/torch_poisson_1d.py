@@ -5,7 +5,11 @@ SURVEY.md 2.1); these scripts are their native equivalents built on the
 framework's own element/assembly stack.
 
 PyTorch twin of ``examples/poisson_1d.py``: runs on the card;
-``main(device="cpu")`` runs it on the CPU.
+``main(device="cpu")`` runs it on the CPU.  From the repository root:
+
+    PYTHONPATH=. python3 examples/torch_poisson_1d.py [u.npy]
+
+(the optional path saves the field with ``np.save``).
 """
 
 import numpy as np
@@ -65,4 +69,8 @@ def main(n=64, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    u = main()
+    if len(sys.argv) > 1:
+        np.save(sys.argv[1], u)
