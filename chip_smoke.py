@@ -195,7 +195,36 @@
    out fails the phase.  Prints each case's wall beside the card's name
    and power limit.  These routes (block-CSR, host LU, Schur CG, CG) run
    no hand-written kernel;
-19. prints one JSON line of kernel results (error: the largest over the
+19. runs the main path at bench.py's problem (circle, ratio 0.5,
+   lc=0.024: 1,453,698 cells, 1,053,696 dofs) and holds it to the JAX
+   package's float64 results, tests/fixtures/bench_refs.npz (written by
+   tests/torch_bench_refs.py, whose rules it applies): (a) the host
+   set-up (``tests/torch_bench_refs.py::port_problem``: the inlet
+   profiles, the mesh, ``_setup_layered(..., mg_levels=3)``), its counts
+   and checksums equal to the fixture's; (b) one NS Jacobian and one
+   residual at g timed (CUDA events), K1 against its plain version
+   on every V-cycle level (Lp 128, 64, 32, 16) for every pair of phase 2,
+   at the NS Jacobian from g, with phase 2's yardsticks, and K2 on levels
+   0-2 at J(0) for the three pairs of phase 15, with its plans (level 0:
+   values from device memory in (f64, f64), 173 rows a block, two passes
+   of 512 threads a stage); (c) the headline, bench.py's five ``max_it=1``
+   Newton steps from g (ksp_rtol 1e-3, ``mg_cheby6_bf16``), each step's
+   FGMRES its within 2 of JAX's (|F| after each step printed as a ratio
+   to JAX's); (d) ``solve_ns_flow(10, circle, 0.5,
+   0.024, coarse_lc=0.024)`` on the card: converged, Newton steps within 1
+   of JAX's, w at 8,192 sampled dofs within rel-L2 1e-6 and the u and p
+   norms within relative 1e-6 of JAX's, with its timings, K1 and K2
+   launches by pair and peak memory; (e) Re=40 by the warm route from
+   (d): converged, held to JAX's Re=40 as (d) is to its Re=10; (f) the
+   Re=40 velocity and pressure written as XDMF by ``io/xdmf.py`` and the
+   velocity re-read bit for bit, then the 200 x 200 trace of the re-read
+   field twice (``trace_warm`` false, then true): outlet points within
+   0.2% of JAX's f64 trace of its Re=40 field and of 21,734 (bench.py's
+   round-5 record), seed_steps within 1% of JAX's f64 count (JAX's
+   float32 count of the same field and round 5's 931,396, traced in
+   float32 on the TPU, printed beside); prints every
+   wall beside the card's name and power limit;
+20. prints one JSON line of kernel results (error: the largest over the
    levels checked in phases 2, 11 and 14; times, bound and library time:
    level 0 of the channel with the mask fused, as the solve calls it, L2
    flushed; ``ms_b2b`` back to back, ``ms_unmasked`` flushed without the
@@ -206,6 +235,10 @@
    phase 16's; ``launches_dfg3d``:
    phase 11's solve; ``launches_sharded``: phase 14's sharded solve;
    ``launches_apps``: phase 17's entry points (K1 and K2);
+   ``ms_bench``, ``bound_ms_bench``, ``plain_ms_bench``,
+   ``library_ms_bench`` (K1) or ``plan_bench`` (K2): level 0 of the bench
+   problem (K1 masked, K2 at J(0)), flushed; ``launches_bench``: phase
+   19's Re=10 and Re=40 solves;
    ``ms_dfg3d``, ``bound_ms_dfg3d``: level 0 of the pillar operator,
    masked, flushed; ``ms_slab``, ``bound_ms_slab``: the slab operand of
    phase 14, likewise; for K2: the largest error over phase 15's levels
@@ -1584,11 +1617,74 @@ def k2_plan_line(K, ms: float, chain_ms: float) -> str:
     stage beside the floor of its barrier chain."""
     p = K.plan
     return (f"cluster {p.cluster} x {p.threads} threads (split {p.split}), "
+            f"{p.max_rows} rows and {p.max_pairs} pairs a block, "
             f"{p.smem_bytes} B shared memory a block, "
             f"{'value ring ' + str(p.slots) if p.staged else 'values from memory'}"
             f"; {K.stages} stages, {ms / K.stages * 1e3:.3f} us a stage; "
             f"the cluster barriers alone {chain_ms:.4f} ms "
             f"({chain_ms / (K.stages + 1) * 1e3:.3f} us a stage)")
+
+
+def plan_record(plan) -> dict:
+    """K2's launch plan as the kernels line reports it."""
+    return dict(cluster=plan.cluster, slots=plan.slots, split=plan.split,
+                threads=plan.threads, rows=plan.max_rows,
+                pairs=plan.max_pairs, bytes=plan.smem_bytes)
+
+
+def check_k2_levels(torch, np, levels, state, rng, flush, checks):
+    """K2 against its plain version on every smoothed level of ``levels``
+    (all but the coarsest, which is solved densely) at ``state``, for
+    each pair of ``K2_PAIRS``: its time with L2 flushed, its bound, its
+    launch plan and its barrier chain's floor; at level 0 of a Stokes
+    matrix also the plain version's time, all of it kept in
+    ``checks[pair]``, whose ``errs`` gathers the max abs errors."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+
+    print(f"K2 shapes at {state}: (E, Lp, n2d) per smoothed level "
+          f"{[(op.values.shape[3], op.n_planes, op.n2d) for op in levels[:-1]]}"
+          f" (the coarsest, {levels[-1].n2d * levels[-1].n_planes * 4} "
+          f"dofs, is solved densely)", flush=True)
+    for k, op in enumerate(levels[:-1]):
+        r = torch.as_tensor(rng.standard_normal(op.mask.numel()),
+                            device=op.values.device)
+        for vname, aname, tol, _ in K2_PAIRS:
+            K = plane_gs.PlaneGSOperand(
+                op.values, op.cols, op.row_ptr, op.diag_pos, op.mask,
+                op.n2d, dtype=getattr(torch, vname))
+            x_k = K(r)
+            torch.cuda.synchronize()
+            x_p = plane_gs.plane_gs_plain(K, r)
+            torch.cuda.synchronize()
+            diff = x_k - x_p
+            max_abs = float(diff.abs().max())
+            rel = float(torch.linalg.vector_norm(diff)
+                        / torch.linalg.vector_norm(x_p))
+            if not torch.isfinite(x_k).all() or rel > tol:
+                raise RuntimeError(
+                    f"K2 ({vname} values, {aname} iterate) disagrees "
+                    f"with its plain version at {state} on level {k}: "
+                    f"rel-L2 {rel:.3e} > {tol:g}")
+            c = checks[(vname, aname)]
+            c["errs"].append(max_abs)
+            ms = time_flushed_ms(lambda: K(r), flush)
+            chain_ms = time_ms(K.barrier_chain, 10)
+            bound, bound_by = k2_bound(K)
+            line = (f"K2 ({vname} values, {aname} iterate) {state} level "
+                    f"{k}: rel-L2 {rel:.3e} (tol {tol:g}), max abs err "
+                    f"{max_abs:.3e}; L2-flushed {ms:.4f} ms, bound "
+                    f"{bound:.4f} ms ({bound_by}; {bound / ms:.2%} of "
+                    f"it)")
+            # the plain version (a Python loop over planes) is timed
+            # where the kernels line reads it: level 0 of J(0)
+            if k == 0 and state.startswith("Stokes"):
+                plain_ms = time_ms(
+                    lambda: plane_gs.plane_gs_plain(K, r), 5)
+                line += f", plain {plain_ms:.4f} ms"
+                c.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=bound_by, cluster=K.plan.cluster,
+                         chain_ms=chain_ms, plan=plan_record(K.plan))
+            print(f"{line}; {k2_plan_line(K, ms, chain_ms)}", flush=True)
 
 
 def run_plane_gs(torch, np, img, device):
@@ -1615,50 +1711,7 @@ def run_plane_gs(torch, np, img, device):
     checks = {p[:2]: dict(errs=[]) for p in K2_PAIRS}
     for state in problem.states:
         levels = k2_levels(problem, state)
-        print(f"K2 shapes at {state}: (E, Lp, n2d) per smoothed level "
-              f"{[(op.values.shape[3], op.n_planes, op.n2d) for op in levels[:-1]]}"
-              f" (the coarsest, {levels[-1].n2d * levels[-1].n_planes * 4} "
-              f"dofs, is solved densely)", flush=True)
-        for k, op in enumerate(levels[:-1]):
-            r = torch.as_tensor(rng.standard_normal(op.mask.numel()),
-                                device=device)
-            for vname, aname, tol, _ in K2_PAIRS:
-                K = plane_gs.PlaneGSOperand(
-                    op.values, op.cols, op.row_ptr, op.diag_pos, op.mask,
-                    op.n2d, dtype=getattr(torch, vname))
-                x_k = K(r)
-                torch.cuda.synchronize()
-                x_p = plane_gs.plane_gs_plain(K, r)
-                torch.cuda.synchronize()
-                diff = x_k - x_p
-                max_abs = float(diff.abs().max())
-                rel = float(torch.linalg.vector_norm(diff)
-                            / torch.linalg.vector_norm(x_p))
-                if not torch.isfinite(x_k).all() or rel > tol:
-                    raise RuntimeError(
-                        f"K2 ({vname} values, {aname} iterate) disagrees "
-                        f"with its plain version at {state} on level {k}: "
-                        f"rel-L2 {rel:.3e} > {tol:g}")
-                c = checks[(vname, aname)]
-                c["errs"].append(max_abs)
-                ms = time_flushed_ms(lambda: K(r), flush)
-                chain_ms = time_ms(K.barrier_chain, 10)
-                bound, bound_by = k2_bound(K)
-                line = (f"K2 ({vname} values, {aname} iterate) {state} level "
-                        f"{k}: rel-L2 {rel:.3e} (tol {tol:g}), max abs err "
-                        f"{max_abs:.3e}; L2-flushed {ms:.4f} ms, bound "
-                        f"{bound:.4f} ms ({bound_by}; {bound / ms:.2%} of "
-                        f"it)")
-                # the plain version (a Python loop over planes) is timed
-                # where the kernels line reads it: level 0 of J(0)
-                if k == 0 and state.startswith("Stokes"):
-                    plain_ms = time_ms(
-                        lambda: plane_gs.plane_gs_plain(K, r), 5)
-                    line += f", plain {plain_ms:.4f} ms"
-                    c.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by=bound_by, cluster=K.plan.cluster,
-                             chain_ms=chain_ms)
-                print(f"{line}; {k2_plan_line(K, ms, chain_ms)}", flush=True)
+        check_k2_levels(torch, np, levels, state, rng, flush, checks)
         del levels
     del flush
     print(f"K2 checks: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -2155,6 +2208,301 @@ def run_clis(torch, cli, card):
           flush=True)
 
 
+BENCH_REFS = os.path.join(FIXTURES, "bench_refs.npz")
+BENCH_RULE = os.path.join(ROOT, "tests", "torch_bench_refs.py")
+BENCH_RE40 = 40.0
+BENCH_WORK = os.path.join(ROOT, "build", "chip_smoke", "bench")
+
+
+def _bench_rule():
+    """tests/torch_bench_refs.py (numpy only at import) and its fixture."""
+    tests = os.path.dirname(BENCH_RULE)
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_bench_refs
+
+    return torch_bench_refs, torch_bench_refs.load(BENCH_REFS)
+
+
+def _newton_its(sol) -> int:
+    """Newton steps of a continuation solve, over its Newton calls (the
+    one-mesh solve's steps are its "coarse" call's; the fine call starts
+    converged)."""
+    return sum(len(h) for k, h in sol.newton_history.items()
+               if k != "refine")
+
+
+def _hold_solution(np, rule, ref, sol, what, newton_its, idx) -> None:
+    """The bench solve ``sol`` against the JAX package's (``ref``, one
+    part of bench_refs.npz): the Newton steps within ``NEWTON_SLACK``, w
+    at the sampled dofs ``idx`` within rel-L2 ``FIELD_REL``, the u and p
+    norms within relative ``NORM_REL``."""
+    _bar(abs(newton_its - ref["newton_its"]) <= rule.NEWTON_SLACK,
+         f"{what}: Newton steps {newton_its} within {rule.NEWTON_SLACK} of "
+         f"JAX's {ref['newton_its']}")
+    rel = _rel(np, sol.w[idx], ref["w"])
+    print(f"{what} vs JAX at {len(idx)} sampled dofs: rel-L2 {rel:.3e} "
+          f"(bar {rule.FIELD_REL:g})", flush=True)
+    _bar(rel < rule.FIELD_REL, f"{what} within rel-L2 {rule.FIELD_REL:g} "
+                               f"of JAX's")
+    for key, got in (("u_norm", np.linalg.norm(sol.u)),
+                     ("p_norm", np.linalg.norm(sol.p))):
+        r = abs(got - ref[key]) / ref[key]
+        _bar(r <= rule.NORM_REL, f"{what} {key} {got:.12e} within relative "
+                                 f"{rule.NORM_REL:g} of JAX's "
+                                 f"{ref[key]:.12e} ({r:.2e})")
+
+
+def run_bench_problem(torch, np, img, card, device):
+    """Phase 19: the main path at bench.py's problem (lc=0.024, 1,053,696
+    dofs), held to the JAX package's float64 results
+    (tests/fixtures/bench_refs.npz).  Returns (K1 checks by pair, K2
+    checks by pair, K1 launches and K2 launches of the Re=10 and Re=40
+    solves by pair)."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        layered_spmv)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.assembly import (
+        ASM_CHUNK)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
+        matrix_values_layered, residual_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
+        solve_ns_flow)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
+        make_ns_sups_kernel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.stokes import (
+        make_stokes_kernel)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.io.xdmf import (
+        read_xdmf_function, write_xdmf_function)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
+        solve_newton_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
+        for_and_rev_streamtrace)
+
+    rule, refs = _bench_rule()
+    lc, r5 = rule.LC, rule.ROUND5
+    walls = {}
+    t_phase = time.perf_counter()
+    print(f"phase 19: bench.py's problem, lc={lc:g}, on {card}", flush=True)
+
+    # (a) the host set-up, as bench.py::build_problem builds it
+    t0 = time.perf_counter()
+    mesh, st, inlet1 = rule.port_problem(img, device)
+    torch.cuda.synchronize()
+    walls["setup"] = time.perf_counter() - t0
+    lp, a = st.lp, st.lp.arrays
+    shape = rule.port_shape(mesh, st)
+    print(f"bench set-up: {walls['setup']:.2f} s host ({card}); cells "
+          f"{shape['n_cells']}, dofs {shape['ndofs']}, (n2d, Lp, E) "
+          f"{(lp.n2d, lp.n_planes, lp.E)}, V-cycle levels "
+          f"{shape['dims'].tolist()}", flush=True)
+    for what, ok, detail in rule.check_shape(shape, rule.part(refs, "shape")):
+        print(f"  bench_refs.npz: {detail}", flush=True)
+        _bar(ok, f"bench problem: {what}")
+
+    # (b) one Jacobian and one residual, then K1 on every level and pair,
+    # K2 on levels 0-2 at J(0)
+    t0 = time.perf_counter()
+    kern = make_ns_sups_kernel("tetrahedron", nu=1.0 / RE)
+    jac_ms = time_ms(lambda: matrix_values_layered(
+        kern, lp.E, lp.n_planes, lp.bs, a, st.g), 5)
+    res_ms = time_ms(lambda: residual_layered(
+        kern, lp.n2d, lp.n_planes, lp.bs, a, st.g), 5)
+    print(f"bench assembly at g: Jacobian {jac_ms:.2f} ms, residual "
+          f"{res_ms:.2f} ms (CUDA events, median of 5; "
+          f"{-(-shape['n_cells'] // ASM_CHUNK)} chunks of {ASM_CHUNK} cells) "
+          f"({card})", flush=True)
+    levels = rule.port_levels(st, kern, st.g)
+    print(f"K1 shapes at lc={lc:g} (J(g), Re=10): (E, Lp, n2d) per level "
+          f"{[(op.values.shape[3], op.n_planes, op.n2d) for op in levels]}",
+          flush=True)
+    every = {p[:2]: range(len(levels)) for p in PAIRS}
+    k1 = {c["pair"]: c for c in check_levels(torch, np, levels, PAIRS,
+                                              device, on_levels=every)}
+    del levels
+    stokes_k = make_stokes_kernel(
+        "tetrahedron", nu=1.0, mu_T_coeff=DEFAULT.stab.stokes_mu_T_coeff)
+    levels = rule.port_levels(st, stokes_k, torch.zeros_like(st.mask))
+    k2 = {p[:2]: dict(errs=[]) for p in K2_PAIRS}
+    flush = L2Flush(torch, device)
+    check_k2_levels(torch, np, levels, f"Stokes J(0) lc={lc:g}",
+                    np.random.default_rng(3), flush, k2)
+    del levels, flush
+    for (vname, aname), c in k2.items():
+        print(f"K2 ({vname}, {aname}) level-0 plan at lc={lc:g}: "
+              f"{json.dumps(c['plan'])}", flush=True)
+    _bar(k2[("float64", "float64")]["plan"]["slots"] == 0,
+         "K2 (float64, float64) reads level 0's values from device memory "
+         "(no value ring fits)")
+    walls["kernel_checks"] = time.perf_counter() - t0
+
+    # (c) the headline: five max_it=1 Newton steps from g
+    h, hl = rule.HEADLINE, rule.part(refs, "headline")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, its, step_s, f_ratio = st.g, [], [], []
+    for _ in range(h["steps"]):
+        t1 = time.perf_counter()
+        out = solve_newton_layered(
+            kern, lp.n2d, lp.n_planes, lp.bs, a, st.mask, st.g, w, lp.E,
+            0.0, 0.0, 1, h["ksp_rtol"], h["ksp_restart"],
+            h["ksp_max_restarts"], h["pc"], st.mg)
+        w = out.x
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        its.append(int(out.history[0, 2]))
+        f_ratio.append(float(out.history[0, 0])
+                       / float(hl["fnorm"][len(its) - 1]))
+        print(f"headline step {len(its)}: FGMRES its {its[-1]}, lambda "
+              f"{float(out.history[0, 1]):g}, |F| {float(out.history[0, 0]):.6e}"
+              f" (JAX f64 on the CPU: {int(hl['its'][len(its) - 1])}, "
+              f"{float(hl['fnorm'][len(its) - 1]):.6e}; |F| / JAX's "
+              f"{f_ratio[-1]:.4f}); {step_s[-1]:.3f} s ({card})", flush=True)
+    walls["headline"] = time.perf_counter() - t0
+    print(f"headline FGMRES its {its}, JAX f64 {hl['its'].tolist()}, round 5 "
+          f"{list(r5['fgmres_its'])}; |F| / JAX's "
+          f"{[round(r, 4) for r in f_ratio]}; steps (s) "
+          f"{[round(t, 3) for t in step_s]}", flush=True)
+    _bar(len(its) == len(hl["its"]) and all(
+        abs(i - int(j)) <= rule.HEADLINE_KSP_SLACK
+        for i, j in zip(its, hl["its"])),
+        f"headline: {len(its)} Newton steps, each step's FGMRES its within "
+        f"{rule.HEADLINE_KSP_SLACK} of JAX's")
+    del st, w, out, a, lp
+
+    # (d) the converged Re=10 solve on the user's path
+    cv = rule.part(refs, "converged")
+    layered_spmv.reset_launches()
+    plane_gs.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sol10 = solve_ns_flow(RE, img, RATIO, channel_mesh_size=lc, coarse_lc=lc,
+                          device=device)
+    torch.cuda.synchronize()
+    walls["re10"] = time.perf_counter() - t0
+    k1_10 = dict(layered_spmv.LAUNCHES_BY_DTYPES)
+    k2_10 = dict(plane_gs.LAUNCHES_BY_DTYPES)
+    peak10 = torch.cuda.max_memory_allocated()
+    _print_solution(sol10, f"bench Re=10 ({card})", walls["re10"])
+    n10 = _newton_its(sol10)
+    print(f"bench Re=10: Stokes FGMRES its {sol10.stokes_iters} (JAX "
+          f"{cv['stokes_its']}), Newton {n10} (JAX {cv['newton_its']}, round "
+          f"5 {r5['converged_newton_its']} + {r5['refine_its']} refine), |F| "
+          f"{sol10.newton_resnorm:.3e} (JAX {cv['fnorm']:.3e}); K1 launches "
+          f"{_by_pair(k1_10)}, K2 launches {_by_pair(k2_10)}; peak "
+          f"{peak10 / 2 ** 30:.2f} GiB allocated", flush=True)
+    _bar(sol10.converged and np.isfinite(sol10.w).all(),
+         "bench Re=10 converged")
+    _hold_solution(np, rule, cv, sol10, "bench Re=10", n10, cv["idx"])
+
+    # (e) Re=40 by the sweep's warm route, from (d)
+    layered_spmv.reset_launches()
+    plane_gs.reset_launches()
+    t0 = time.perf_counter()
+    sol40 = solve_ns_flow(BENCH_RE40, img, RATIO, channel_mesh_size=lc,
+                          coarse_lc=lc, device=device, warm=sol10)
+    torch.cuda.synchronize()
+    walls["re40"] = time.perf_counter() - t0
+    k1_40 = dict(layered_spmv.LAUNCHES_BY_DTYPES)
+    k2_40 = dict(plane_gs.LAUNCHES_BY_DTYPES)
+    _print_solution(sol40, f"bench Re=40 warm ({card})", walls["re40"])
+    print(f"bench Re=40: Newton {sol40.newton_iters} (JAX "
+          f"{refs['re40__newton_its']}; round 5: {r5['re40_newton_its']} f32 "
+          f"+ {r5['re40_refine_its']} refine, another route), |F| "
+          f"{sol40.newton_resnorm:.3e} (JAX {refs['re40__fnorm']:.3e}); K1 "
+          f"launches {_by_pair(k1_40)}, K2 launches {_by_pair(k2_40)}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    _bar(sol40.converged and np.isfinite(sol40.w).all(),
+         "bench Re=40 converged (SNES rtol = atol = 1e-8)")
+    _bar(not any(k.startswith("coarse") for k in sol40.newton_history),
+         "bench Re=40 took the warm route (no coarse phase)")
+    _hold_solution(np, rule, rule.part(refs, "re40"), sol40, "bench Re=40",
+                   sol40.newton_iters, cv["idx"])
+    k1_launches = {k: k1_10.get(k, 0) + k1_40.get(k, 0)
+                   for k in set(k1_10) | set(k1_40)}
+    k2_launches = {k: k2_10.get(k, 0) + k2_40.get(k, 0)
+                   for k in set(k2_10) | set(k2_40)}
+    del sol10
+
+    # (f) checkpoint and trace, as bench.py::run_trace_io
+    shutil.rmtree(BENCH_WORK, ignore_errors=True)
+    os.makedirs(BENCH_WORK)
+    base = os.path.join(BENCH_WORK, "Re40ChannelVelocity")
+    t0 = time.perf_counter()
+    write_xdmf_function(base, sol40.mesh, sol40.u, "Velocity")
+    write_xdmf_function(os.path.join(BENCH_WORK, "Re40ChannelPressure"),
+                        sol40.mesh, sol40.p, "Pressure")
+    io_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_r, u_r = read_xdmf_function(base, "Velocity")
+    io_read_s = time.perf_counter() - t0
+    want = np.asarray(sol40.u, np.float64)
+    _bar(u_r.dtype == np.float64 and u_r.tobytes() == want.tobytes()
+         and np.array_equal(mesh_r.cells, sol40.mesh.cells)
+         and mesh_r.points.tobytes() == sol40.mesh.points.tobytes(),
+         "bench: Re40ChannelVelocity.h5 read back equals the field and mesh "
+         "bit for bit")
+    print(f"bench I/O: io_write_s {io_write_s:.4f}, io_read_s "
+          f"{io_read_s:.4f}, Re40ChannelVelocity.h5 {_mb(base + '.h5'):.2f} "
+          f"MB ({card})", flush=True)
+    seeds, tr = inlet1.mesh.points, rule.part(refs, "trace")
+    trace = {}
+    for warm in (False, True):
+        t0 = time.perf_counter()
+        res = for_and_rev_streamtrace(NUM_SEEDS, img, mesh_r, u_r, seeds,
+                                      DEFAULT, device=device)
+        wall = time.perf_counter() - t0
+        stt = res.stats
+        tag = "warm" if warm else "cold"
+        trace[tag] = dict(
+            trace_warm=warm, wall_s=wall, n_outlet_points=len(
+                res.outlet_points),
+            **{k: stt[k] for k in ("seeds", "seed_steps", "lane_steps",
+                                   "dispatches", "locator_build_s", "fwd_s",
+                                   "rev_s")})
+        print(f"bench trace {json.dumps(trace[tag])} ({card})", flush=True)
+        _bar(np.isfinite(res.forward_endpoints).all()
+             and np.isfinite(res.reverse_endpoints).all(),
+             f"bench trace ({tag}) endpoints finite")
+        n_out, steps = len(res.outlet_points), stt["seed_steps"]
+        print(f"bench trace ({tag}): outlet points {n_out} (JAX f64 "
+              f"{tr['n_outlet_points']}, round 5 {r5['n_outlet_points']}), "
+              f"kept forward {len(res.forward_endpoints)} (JAX f64 "
+              f"{tr['n_forward_kept']}), seed_steps {steps} (JAX f64 "
+              f"{tr['seed_steps']}, JAX f32 {tr['f32_seed_steps']}, round 5 "
+              f"{r5['trace_seed_steps']}), "
+              f"lane_steps {stt['lane_steps']} (JAX f64 {tr['lane_steps']},"
+              f" round 5 {r5['trace_lane_steps']})", flush=True)
+        for ref, who in ((tr["n_outlet_points"], "JAX f64's"),
+                         (r5["n_outlet_points"], "round 5's")):
+            _bar(abs(n_out - ref) <= rule.OUTLET_REL * ref,
+                 f"bench trace ({tag}): outlet points {n_out} within "
+                 f"{rule.OUTLET_REL:.1%} of {who} {ref}")
+        _bar(abs(steps - tr["seed_steps"])
+             <= rule.SEED_STEPS_REL * tr["seed_steps"],
+             f"bench trace ({tag}): seed_steps {steps} within "
+             f"{rule.SEED_STEPS_REL:.0%} of JAX f64's {tr['seed_steps']}")
+        _bar(all(isinstance(stt[k], int) for k in ("seed_steps",
+                                                    "lane_steps")),
+             f"bench trace ({tag}): the step counters are Python ints "
+             f"(64-bit and more)")
+    walls["trace_cold"] = trace["cold"]["wall_s"]
+    walls["trace_warm"] = trace["warm"]["wall_s"]
+    walls["io"] = io_write_s + io_read_s
+    walls["phase"] = time.perf_counter() - t_phase
+    print(f"phase 19 walls (s): "
+          f"{json.dumps({k: round(v, 3) for k, v in walls.items()})} "
+          f"({card})", flush=True)
+    return k1, k2, k1_launches, k2_launches
+
+
+def _dtypes(torch, pair) -> tuple:
+    """("float64", "float32") -> (torch.float64, torch.float32)."""
+    return tuple(getattr(torch, n) for n in pair)
+
+
 def _by_pair(launches) -> dict:
     return {f"{str(v).removeprefix('torch.')} values, "
             f"{str(x).removeprefix('torch.')} x": n
@@ -2172,7 +2520,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(f)
             for f in (FIXTURE, TRACE_FIXTURE, GRAFT_ENTRY, CLI_REFS,
-                      CLI_RULE) + BCSR_FIXTURES):
+                      CLI_RULE, BENCH_REFS, BENCH_RULE) + BCSR_FIXTURES):
         return fail(f"run from a checkout of the repository ({PKG}/, "
                     f"__graft_entry_torch__.py and tests/ beside this "
                     f"script)")
@@ -2233,6 +2581,8 @@ def main() -> int:
         apps_launches, k2_apps = run_apps(torch, np, img, sol20, card,
                                           device)
         run_clis(torch, cli, card)
+        k1_bench, k2_bench, k1_bench_launches, k2_bench_launches = \
+            run_bench_problem(torch, np, img, card, device)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
@@ -2247,8 +2597,7 @@ def main() -> int:
     on_slab = {c["pair"]: c for c in slab_checks}
 
     def count(c, path):
-        return by_path[path].get(tuple(getattr(torch, n) for n in c["pair"]),
-                                 0)
+        return by_path[path].get(_dtypes(torch, c["pair"]), 0)
 
     missing = [c["pair"] for c in checks if count(c, c["path"]) == 0]
     if missing:
@@ -2258,6 +2607,15 @@ def main() -> int:
                if c["pair"][0] == "float64" and count(c, "tfqmr") == 0]
     if missing:
         return fail(f"the TFQMR solve never launched K1 for {missing}")
+    # phase 19's Re=10 and Re=40 solves run the main path's pairs
+    missing = [c["pair"] for c in checks if c["path"] == "main"
+               and k1_bench_launches.get(_dtypes(torch, c["pair"]), 0) == 0]
+    if missing:
+        return fail(f"the bench problem's solves never launched K1 for "
+                    f"{missing}")
+    if k2_bench_launches.get((torch.float64, torch.float64), 0) == 0:
+        return fail("the bench problem's solves never launched K2 "
+                    "(float64, float64)")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -2285,7 +2643,12 @@ def main() -> int:
         if c["pair"] in on_pillar else None,
         ms_slab=on_slab[c["pair"]]["ms"] if c["pair"] in on_slab else None,
         bound_ms_slab=on_slab[c["pair"]]["bound_ms"]
-        if c["pair"] in on_slab else None)
+        if c["pair"] in on_slab else None,
+        ms_bench=k1_bench[c["pair"]]["ms"],
+        bound_ms_bench=k1_bench[c["pair"]]["bound_ms"],
+        plain_ms_bench=k1_bench[c["pair"]]["plain_ms"],
+        library_ms_bench=k1_bench[c["pair"]]["library_ms"],
+        launches_bench=k1_bench_launches.get(_dtypes(torch, c["pair"]), 0))
         for c in checks] + [dict(
         name=f"plane_gs[{vname} values, {aname} iterate]",
         route="cuda",
@@ -2303,6 +2666,12 @@ def main() -> int:
         bound_by=k2_checks[(vname, aname)]["bound_by"],
         cluster=k2_checks[(vname, aname)]["cluster"],
         barrier_chain_ms=k2_checks[(vname, aname)]["chain_ms"],
+        ms_bench=k2_bench[(vname, aname)]["ms"],
+        bound_ms_bench=k2_bench[(vname, aname)]["bound_ms"],
+        plain_ms_bench=k2_bench[(vname, aname)]["plain_ms"],
+        plan_bench=k2_bench[(vname, aname)]["plan"],
+        launches_bench=k2_bench_launches.get(
+            _dtypes(torch, (vname, aname)), 0),
         library_ms=None,
         library="none: no single PyTorch call computes a plane Gauss-Seidel "
                 "sweep")

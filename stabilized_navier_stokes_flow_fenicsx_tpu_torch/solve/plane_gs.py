@@ -169,7 +169,10 @@ def make_plan(row_ptr: np.ndarray, cols: np.ndarray, vsize: int, asize: int,
     lc=0.04 channel: PERF.md, profile_torch_k2.py); a given ``cluster``
     takes that size.  The ring is as deep as fits, up to ``MAX_SLOTS``;
     ``split`` (threads per row and component) is the largest that keeps
-    a stage in one pass of ``MAX_THREADS`` threads.  ``schedulable(plan)``
+    a stage in one pass of ``MAX_THREADS`` threads, else 1, and then a
+    stage takes more than one pass of the block (the kernel loops; level
+    0 of bench.py's problem, 173 rows a block, takes two).
+    ``schedulable(plan)``
     (the card's occupancy query, which needs no column codes; None: every
     plan) rules sizes out.  Raises ValueError for a size outside
     ``CLUSTER_SIZES`` or one whose blocks do not fit, RuntimeError when no

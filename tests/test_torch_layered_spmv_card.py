@@ -15,7 +15,10 @@ operand (assemble/layered_spmv.py::LayeredOperand), unmasked and with
 the level's BC mask fused in.  The pillar meshes (apps/dfg3d.py, scale
 2.0 and scale 1.0 with near_growth 0.15) bring a cross-section with a
 hole and few planes: Lp = 7 and 13 on the fine level, 4 and 7 below.
-Tolerances (relative L2):
+bench.py's problem (lc=0.024, tests/torch_bench_refs.py) brings the
+widest launch: Lp = 128 on the fine level, so an f64 team of 512
+threads, the kernel's most (64, 32 and 16 planes below), at its NS
+Jacobian from g.  Tolerances (relative L2):
 
 * f64 values, f64 x: 1e-12 — only the summation order differs;
 * bf16 values, f32 or f64 x: 5e-3 — the plain version rounds each
@@ -44,6 +47,7 @@ from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
     make_annulus_image)
 
+import torch_bench_refs as bench_refs
 from parity_fixtures import CHANNEL
 
 PAIR_TOLS = [
@@ -166,3 +170,27 @@ def test_kernel_refuses_what_it_does_not_take(levels):
     with pytest.raises(ValueError, match="contiguous"):
         K(torch.zeros(2 * x.numel(), dtype=x.dtype, device=dev)[::2])
     assert layered_spmv.LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def bench_levels(tmp_path_factory):
+    """Every V-cycle level of bench.py's problem at its NS Jacobian from
+    g, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel; no CPU mode)")
+    img = make_annulus_image(
+        str(tmp_path_factory.mktemp("k1bench") / "circle.png"), "circle")
+    _mesh, st, _ = bench_refs.port_problem(img, torch.device("cuda"))
+    kern = make_ns_sups_kernel("tetrahedron", nu=1.0 / bench_refs.RE)
+    return bench_refs.port_levels(st, kern, st.g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("vdtype, xdtype, tol", PAIR_TOLS)
+def test_kernel_matches_plain_at_bench_size(bench_levels, vdtype, xdtype,
+                                            tol, masked):
+    assert [op.n_planes for op in bench_levels] == [128, 64, 32, 16]
+    ppt, _teams = layered_spmv.launch_shape(128, vdtype, xdtype)
+    assert 4 * 128 // ppt <= layered_spmv.MAX_TEAM
+    _check_levels(bench_levels, vdtype, xdtype, tol, masked)

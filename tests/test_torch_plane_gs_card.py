@@ -17,7 +17,12 @@ the kernel's thread-block cluster at every size of 1, 2, 4, 8 and 16
 that the card can schedule, on level 0, and its edge cases: rows that
 the cluster size does not divide, fewer rows than blocks, one plane, a
 mask with random zeros, and a level whose value slices do not fit
-shared memory (read from device memory instead).  Tolerances (relative
+shared memory (read from device memory instead).  Last, level 0 of
+bench.py's problem (lc=0.024, tests/torch_bench_refs.py: 173 rows a
+block, so a stage takes two passes of the 512 threads) at its NS
+Jacobian from g, in each pair at the plan the card takes: the values
+read from device memory in (f64, f64), a ring of 4 slices in (bf16,
+f32) and of 3 (223,648 bytes a block) in (f32, f32).  Tolerances (relative
 L2): 1e-10 with f64 values, 1e-4 with bf16 or f32 values and the f32
 iterate: both sides compute in the iterate's type and differ in the
 summation order of the 2D products, which the sweep carries from plane
@@ -43,6 +48,7 @@ from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
     make_annulus_image)
 
+import torch_bench_refs as bench_refs
 from parity_fixtures import CHANNEL
 
 PAIR_TOLS = [(torch.float64, torch.float64, 1e-10),
@@ -248,3 +254,34 @@ def test_kernel_reads_values_from_memory_where_the_ring_does_not_fit(
     r = torch.as_tensor(rng.standard_normal(mask.numel()),
                         device=mask.device)
     _check(K, r, tol, "values from memory")
+
+
+@pytest.fixture(scope="module")
+def bench_level0(tmp_path_factory):
+    """Level 0 of bench.py's problem at its NS Jacobian from g, on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel; no CPU mode)")
+    img = make_annulus_image(
+        str(tmp_path_factory.mktemp("k2bench") / "circle.png"), "circle")
+    _mesh, st, _ = bench_refs.port_problem(img, torch.device("cuda"))
+    kern = make_ns_sups_kernel("tetrahedron", nu=1.0 / bench_refs.RE)
+    return bench_refs.port_levels(st, kern, st.g)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdtype, adtype, tol, slots",
+                         [(*PAIR_TOLS[0], 0), (*PAIR_TOLS[1], 4),
+                          (*F32_TOL, 3)])
+def test_kernel_matches_plain_at_bench_size(bench_level0, vdtype, adtype,
+                                            tol, slots):
+    op = bench_level0
+    assert (op.n_planes, op.n2d) == (128, 2058)
+    K = plane_gs.PlaneGSOperand(op.values, op.cols, op.row_ptr, op.diag_pos,
+                                op.mask, op.n2d, dtype=vdtype)
+    p = K.plan
+    assert (p.cluster, p.split, p.threads, p.slots) == (16, 1, 512, slots)
+    assert 4 * p.max_rows * p.split > p.threads      # two passes a stage
+    r = torch.as_tensor(np.random.default_rng(13).standard_normal(
+        op.mask.numel()), device=op.values.device)
+    _check(K, r, tol, f"bench level 0, {slots} slots")
