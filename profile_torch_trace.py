@@ -6,11 +6,14 @@
 Traces the stored lc=0.04 Re=10 field (tests/fixtures/channel_ns_prod.npz)
 with ``trace.pipeline.for_and_rev_streamtrace(200, ...)`` three times
 in one process on ``cuda`` in float64: cold, warm, and warm under
-``torch.profiler``.  Prints each run's wall and its ``stats``, the
-profiled run's device busy share (the union of the kernels' device
-intervals over the profiled wall, both from that one run), the kernel
-launches per masked RK iteration and the kernels with the most device
-time; writes the full tables to ``--out``.  The last line is one JSON
+``torch.profiler`` inside a ``case`` span of the program's tracer.
+Prints each run's wall and its ``stats``, the profiled run's device
+busy share (the union of the kernels' device intervals over the
+profiled wall, both from that one run), its program spans with their
+host time, the card's idle time they hold and their host reads
+(``profile_torch_solve.py::span_table``), the kernel launches per
+masked RK iteration and the kernels with the most device time; writes
+the full tables to ``--out``.  The last line is one JSON
 summary.  Exits nonzero without a CUDA card.  Imports no JAX.
 """
 
@@ -42,7 +45,7 @@ def main() -> int:
         print("profile_torch_trace: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from profile_torch_solve import busy_us
+    from profile_torch_solve import busy_us, span_table
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.fem.space import (
         make_mixed_space)
@@ -54,6 +57,8 @@ def main() -> int:
         for_and_rev_streamtrace)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.streamtrace import (
         SEG_STEPS)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import (
+        profiling)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
         make_annulus_image)
 
@@ -86,9 +91,11 @@ def main() -> int:
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
-        prof_wall, _ = trace("profiled")
+        with profiling.span("case"):
+            prof_wall, _ = trace("profiled")
     events = prof.events()
     busy = busy_us(events) / 1e6
+    spans = span_table(prof, profiling.cases()[-1])
     n_kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
     # masked RK iterations run: SEG_STEPS per segment call, segment calls
     # = dispatches (forward + reverse)
@@ -112,7 +119,7 @@ def main() -> int:
                    profiled_s=prof_wall, device_busy_s=busy,
                    busy_share_profiled=busy / prof_wall,
                    kernel_launches=n_kernels, rk_iterations=iters,
-                   launches_per_iteration=n_kernels / iters)
+                   launches_per_iteration=n_kernels / iters, **spans)
     print(f"device busy {busy:.3f} s of the profiled {prof_wall:.3f} s "
           f"wall: {100 * busy / prof_wall:.1f}%; {n_kernels} kernel "
           f"launches over {iters} masked RK iterations", flush=True)

@@ -15,7 +15,8 @@ the BC machinery.
 
 The port builds the structured-SoA assembly route only (the JAX
 package's ``NS_TPU_*`` build switches select the routes it does not
-port).
+port).  ``build_layered`` is a span of the same name
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from ..fem.space import MixedVelocityPressureSpace
 from ..utils.device import row_ptr_of, upload
+from ..utils.profiling import traced
 from .assembly import ASM_CHUNK, residual_of
 from .layered_spmv import LayeredOperand
 from .structured import (StructuredAsm, build_structured_plan,
@@ -84,6 +86,7 @@ class LayeredPattern:
         return self.n2d * self.n_planes * self.bs
 
 
+@traced("build_layered")
 def build_layered(
     space: MixedVelocityPressureSpace,
     n2d: int,

@@ -29,7 +29,9 @@ optionally with the Dirichlet projection fused in: m * A (m * x) +
 The kernel is built at first use with ``nvcc`` from the package's own
 source into ``build/torch_kernels/`` of the checkout (utils/nvcc.py;
 route: a shared library with a plain C interface, loaded with ctypes).
-``LAUNCHES`` counts kernel launches.
+Each launch adds one to the tracer's counter ``k1_launch`` under its
+shape (E, Lp, n2d, values dtype, x dtype, masked; utils/profiling.py);
+``LAUNCHES`` and ``LAUNCHES_BY_DTYPES`` read it.
 """
 
 from __future__ import annotations
@@ -40,10 +42,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..utils import nvcc
+from ..utils.profiling import count, counts
 
-LAUNCHES = 0          # kernel launches since import (or the last reset)
-# the same launches by (values dtype, x dtype)
-LAUNCHES_BY_DTYPES: Dict[Tuple[torch.dtype, torch.dtype], int] = {}
+COUNTER = "k1_launch"
+_reset_at: Dict = {}      # the counter at the last ``reset_launches``
 
 _BS = 4
 _NROW = 3 * _BS * _BS     # value rows of one pair
@@ -199,7 +201,10 @@ class LayeredOperand:
             self._fn = build().layered_spmv
             self._dev_index = dev.index if dev.index is not None \
                 else torch.cuda.current_device()
-            self._key = {a: (vdtype, a) for a in _ATYPE}
+            # the launch's shape, the key of its count
+            self._key = {a: (E, Lp, n2d, dtype_name(vdtype),
+                             dtype_name(a), mask is not None)
+                         for a in _ATYPE}
             # the launch's Params for x of either type
             self._pstructs = {a: _Params(
                 self.values.data_ptr(), cols.data_ptr(), row_ptr.data_ptr(),
@@ -234,7 +239,6 @@ class LayeredOperand:
                 f"{tuple(x.shape)} on {x.device}")
         if not self._cuda:
             return layered_matvec_plain(self, x)
-        global LAUNCHES
         if not x.is_contiguous():
             raise ValueError("layered_spmv: x is not contiguous")
         y = torch.empty_like(x)
@@ -246,9 +250,7 @@ class LayeredOperand:
         if err != 0:
             raise RuntimeError(f"layered_spmv: launch failed (cudaError "
                                f"{err})")
-        LAUNCHES += 1
-        key = self._key[x.dtype]
-        LAUNCHES_BY_DTYPES[key] = LAUNCHES_BY_DTYPES.get(key, 0) + 1
+        count(COUNTER, key=self._key[x.dtype])
         return y
 
     def _launch(self, x, y) -> int:
@@ -280,8 +282,35 @@ def layered_matvec_plain(op: LayeredOperand,
     return y if m is None else m * y + (1.0 - m) * x
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.float64`` -> ``"float64"`` (a launch key's dtype)."""
+    return str(dtype).replace("torch.", "")
+
+
+def launch_attr(counter: str, since: Dict, name: str):
+    """A kernel module's ``LAUNCHES``, the launches the tracer's
+    ``counter`` counted after ``since`` (the counter at the module's last
+    ``reset_launches``), or ``LAUNCHES_BY_DTYPES``, the same by (values
+    dtype, iterate dtype): a launch key's 4th and 5th entries."""
+    launches = counts(counter, since)
+    if name == "LAUNCHES":
+        return sum(launches.values())
+    if name != "LAUNCHES_BY_DTYPES":
+        raise AttributeError(f"no attribute {name!r}")
+    out: Dict[Tuple[torch.dtype, torch.dtype], int] = {}
+    for key, n in launches.items():
+        pair = (getattr(torch, key[3]), getattr(torch, key[4]))
+        out[pair] = out.get(pair, 0) + n
+    return out
+
+
+def __getattr__(name: str):
+    """``LAUNCHES`` and ``LAUNCHES_BY_DTYPES`` (by (values dtype, x
+    dtype)): K1 launches since import or the last ``reset_launches``."""
+    return launch_attr(COUNTER, _reset_at, name)
+
+
 def reset_launches() -> None:
-    """Set the launch counts to 0."""
-    global LAUNCHES
-    LAUNCHES = 0
-    LAUNCHES_BY_DTYPES.clear()
+    """Count the launches from now."""
+    _reset_at.clear()
+    _reset_at.update(counts(COUNTER))

@@ -27,12 +27,18 @@ Newton is followed by iterative refinement to the Newton tolerances
 (``SolverConfig.refine``, solve/refine.py): the JAX package's
 double-float residual is an f64 one here, on f64 geometry and f64 BC
 values.
+
+Every step is a span (utils/profiling.py): ``solve`` around the whole,
+one per ``timings`` key with the same name (each ``timings`` value is
+its span's length; those that end in a device synchronize still do),
+``layered_setup`` (``build_layered``, ``mg_hierarchy`` inside) and
+``interpolate.locate`` / ``interpolate.eval``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -53,7 +59,7 @@ from ..solve.driver import (refine_newton_layered, residual_norm_layered,
                             solve_linear_layered, solve_newton_layered)
 from ..solve.newton import KSP_TYPES
 from ..solve.refine import refine_enabled
-from ..utils.device import sync
+from ..utils.profiling import read, span, traced
 from .inlet import InletProfile, solve_inlet_profiles
 
 
@@ -161,10 +167,12 @@ def interpolate_solution(
     """Coarse -> fine initial guess (reference interpolate_initial_guess,
     :175-194; padding 1e-6, outside points get zero)."""
     u, p = src_space.split(np.asarray(w_src))
-    loc = build_locator(src_mesh)
+    with span("interpolate.locate"):
+        loc = build_locator(src_mesh)
     pts = dst_mesh.points
-    u_i = interpolate_p1_np(src_mesh, u, pts, loc, tol=1e-6)
-    p_i = interpolate_p1_np(src_mesh, p, pts, loc, tol=1e-6)
+    with span("interpolate.eval"):
+        u_i = interpolate_p1_np(src_mesh, u, pts, loc, tol=1e-6)
+        p_i = interpolate_p1_np(src_mesh, p, pts, loc, tol=1e-6)
     return dst_space.combine(u_i, p_i)
 
 
@@ -180,6 +188,7 @@ class LayeredSetup:
     g64: Optional[torch.Tensor] = None   # the BC values in f64 (refinement)
 
 
+@traced("layered_setup")
 def _setup_layered(mesh, inlet1, inlet2, dtype=None, mg_levels=0,
                    device=None) -> LayeredSetup:
     """Layered-solver setup: BCs plus identity rows on the unused nodes of
@@ -220,6 +229,15 @@ def _mg_levels(scfg) -> int:
                               or scfg.pc_newton.startswith("mg")) else 0
 
 
+@contextlib.contextmanager
+def _phase(timings: dict, name: str, device=None):
+    """The block as the span ``name`` (waiting for ``device`` before it
+    closes, when given) and its length as ``timings[name]``."""
+    with span(name, device) as s:
+        yield
+    timings[name] = s.seconds
+
+
 def _newton(kernel, st: LayeredSetup, w0, scfg):
     lp = st.lp
     return solve_newton_layered(
@@ -229,6 +247,7 @@ def _newton(kernel, st: LayeredSetup, w0, scfg):
         scfg.ksp_type)
 
 
+@traced("solve")
 def solve_ns_flow(
     Re: float,
     img_fname: str,
@@ -265,9 +284,9 @@ def solve_ns_flow(
                          f"{KSP_TYPES}")
     timings = {}
 
-    t0 = time.perf_counter()
-    inlet1, inlet2 = solve_inlet_profiles(img_fname, flowrate_ratio, cfg)
-    timings["inlet_profiles"] = time.perf_counter() - t0
+    with _phase(timings, "inlet_profiles"):
+        inlet1, inlet2 = solve_inlet_profiles(img_fname, flowrate_ratio,
+                                              cfg)
 
     if warm is not None:
         sol = _solve_ns_flow_warm(Re, img_fname, inlet1, inlet2,
@@ -278,9 +297,8 @@ def solve_ns_flow(
         # shape mismatch: fall through to the full continuation solve
 
     # ---- coarse mesh: Stokes + NS --------------------------------------
-    t0 = time.perf_counter()
-    mesh_c, _, _ = generate_channel_mesh(img_fname, coarse_lc, cfg)
-    timings["coarse_mesh"] = time.perf_counter() - t0
+    with _phase(timings, "coarse_mesh"):
+        mesh_c, _, _ = generate_channel_mesh(img_fname, coarse_lc, cfg)
 
     stokes_k = make_stokes_kernel(
         "tetrahedron", nu=1.0, mu_T_coeff=cfg.stab.stokes_mu_T_coeff)
@@ -300,49 +318,40 @@ def solve_ns_flow(
     else:
         re_ladder = [cRe]
 
-    t0 = time.perf_counter()
-    st_c = _setup_layered(mesh_c, inlet1, inlet2, dtype, _mg_levels(scfg),
-                          device)
-    sync(device)
-    timings["coarse_setup"] = time.perf_counter() - t0
+    with _phase(timings, "coarse_setup", device):
+        st_c = _setup_layered(mesh_c, inlet1, inlet2, dtype,
+                              _mg_levels(scfg), device)
     lp_c = st_c.lp
-    t0 = time.perf_counter()
-    sres = solve_linear_layered(
-        stokes_k, lp_c.n2d, lp_c.n_planes, lp_c.bs, lp_c.arrays,
-        st_c.mask, st_c.g, lp_c.E, 1e-8, scfg.ksp_restart, scfg.pc, st_c.mg)
-    sync(device)
-    timings["stokes"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    x_rung = sres.x
-    history = {}
-    for r in re_ladder:
-        nres_c = _newton(ns_kernel(r), st_c, x_rung, scfg)
-        history[f"coarse_ns_Re{float(r):g}"] = nres_c.history
-        x_rung = nres_c.x
-    sync(device)
-    timings["coarse_ns"] = time.perf_counter() - t0
+    with _phase(timings, "stokes", device):
+        sres = solve_linear_layered(
+            stokes_k, lp_c.n2d, lp_c.n_planes, lp_c.bs, lp_c.arrays,
+            st_c.mask, st_c.g, lp_c.E, 1e-8, scfg.ksp_restart, scfg.pc,
+            st_c.mg)
+    with _phase(timings, "coarse_ns", device):
+        x_rung = sres.x
+        history = {}
+        for r in re_ladder:
+            nres_c = _newton(ns_kernel(r), st_c, x_rung, scfg)
+            history[f"coarse_ns_Re{float(r):g}"] = nres_c.history
+            x_rung = nres_c.x
 
     # ---- fine mesh: NS from interpolated coarse ------------------------
     if abs(channel_mesh_size - coarse_lc) < 1e-12:
         mesh_f, st_f, w0_f = mesh_c, st_c, nres_c.x
     else:
-        t0 = time.perf_counter()
-        mesh_f, _, _ = generate_channel_mesh(img_fname, channel_mesh_size,
-                                             cfg)
-        timings["fine_mesh"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        st_f = _setup_layered(mesh_f, inlet1, inlet2, dtype,
-                              _mg_levels(scfg), device)
-        sync(device)
-        timings["fine_setup"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        w_c = nres_c.x.cpu().numpy()
-        w0_f = torch.as_tensor(
-            interpolate_solution(mesh_c, st_c.space, w_c, mesh_f,
-                                 st_f.space), dtype=dtype, device=device)
-        # re-impose BC values exactly on the fine mesh
-        w0_f = st_f.mask * w0_f + (1.0 - st_f.mask) * st_f.g
-        timings["interpolate"] = time.perf_counter() - t0
+        with _phase(timings, "fine_mesh"):
+            mesh_f, _, _ = generate_channel_mesh(img_fname,
+                                                 channel_mesh_size, cfg)
+        with _phase(timings, "fine_setup", device):
+            st_f = _setup_layered(mesh_f, inlet1, inlet2, dtype,
+                                  _mg_levels(scfg), device)
+        with _phase(timings, "interpolate"):
+            w_c = read(nres_c.x, torch.Tensor.cpu).numpy()
+            w0_f = torch.as_tensor(
+                interpolate_solution(mesh_c, st_c.space, w_c, mesh_f,
+                                     st_f.space), dtype=dtype, device=device)
+            # re-impose BC values exactly on the fine mesh
+            w0_f = st_f.mask * w0_f + (1.0 - st_f.mask) * st_f.g
 
     sol = _fine_newton_refine(Re, cfg, mesh_f, st_f, ns_kernel(Re), w0_f,
                               timings, device)
@@ -360,38 +369,34 @@ def _fine_newton_refine(Re, cfg, mesh_f, st_f: LayeredSetup, ns_f, w0_f,
     stalled or at its step budget."""
     scfg = cfg.solver
     lp = st_f.lp
-    t0 = time.perf_counter()
-    nres_f = _newton(ns_f, st_f, w0_f, scfg)
-    sync(device)
-    timings["fine_ns"] = time.perf_counter() - t0
+    with _phase(timings, "fine_ns", device):
+        nres_f = _newton(ns_f, st_f, w0_f, scfg)
     history = {"fine_ns": nres_f.history}
     if not refine_enabled(scfg.refine, st_f.mask.dtype):
-        w = nres_f.x.cpu().numpy()
+        w = read(nres_f.x, torch.Tensor.cpu).numpy()
         u, p = st_f.space.split(w)
         return ChannelSolution(
             mesh_f, st_f.space, w, u, p, Re, int(nres_f.iters),
             float(nres_f.resnorm), bool(nres_f.converged), timings,
             newton_history=history)
 
-    t0 = time.perf_counter()
-    # SNES semantics: n0 is ||F|| at the fine Newton's start, in the solve
-    # dtype, as the JAX package takes it
-    n0 = residual_norm_layered(ns_f, lp.n2d, lp.n_planes, lp.bs, lp.arrays,
-                               st_f.mask, st_f.g, w0_f, lp.E)
-    rres = refine_newton_layered(
-        ns_f, lp.n2d, lp.n_planes, lp.bs, lp.E, lp.arrays,
-        layered_arrays_in(lp.arrays, mesh_f, torch.float64),
-        st_f.mask, st_f.g64, nres_f.x, n0, scfg.newton_rtol,
-        scfg.newton_atol, scfg.refine_max_it, scfg.refine_ksp_rtol,
-        scfg.ksp_restart, scfg.refine_ksp_max_restarts, scfg.pc_newton,
-        st_f.mg)
-    sync(device)
-    timings["refine"] = time.perf_counter() - t0
+    with _phase(timings, "refine", device):
+        # SNES semantics: n0 is ||F|| at the fine Newton's start, in the
+        # solve dtype, as the JAX package takes it
+        n0 = residual_norm_layered(ns_f, lp.n2d, lp.n_planes, lp.bs,
+                                   lp.arrays, st_f.mask, st_f.g, w0_f, lp.E)
+        rres = refine_newton_layered(
+            ns_f, lp.n2d, lp.n_planes, lp.bs, lp.E, lp.arrays,
+            layered_arrays_in(lp.arrays, mesh_f, torch.float64),
+            st_f.mask, st_f.g64, nres_f.x, n0, scfg.newton_rtol,
+            scfg.newton_atol, scfg.refine_max_it, scfg.refine_ksp_rtol,
+            scfg.ksp_restart, scfg.refine_ksp_max_restarts, scfg.pc_newton,
+            st_f.mg)
     h = rres.history
     history["refine"] = np.stack(
         [h[:, 0], np.ones(len(h)), h[:, 1], h[:, 2]], axis=1)
-    w = rres.x_hi.cpu().numpy()
-    w_lo = rres.x_lo.cpu().numpy()
+    w = read(rres.x_hi, torch.Tensor.cpu).numpy()
+    w_lo = read(rres.x_lo, torch.Tensor.cpu).numpy()
     u, p = st_f.space.split(w.astype(np.float64) + w_lo)
     return ChannelSolution(
         mesh_f, st_f.space, w, u, p, Re, int(nres_f.iters),
@@ -407,17 +412,14 @@ def _solve_ns_flow_warm(Re, img_fname, inlet1, inlet2, lc, cfg, dtype,
     """Reynolds-sweep warm path: fine mesh + setup only, Newton from the
     previous Re's fine solution.  Returns None on shape mismatch (the
     caller falls back to the full continuation solve)."""
-    t0 = time.perf_counter()
-    mesh_f, _, _ = generate_channel_mesh(img_fname, lc, cfg)
-    timings["fine_mesh"] = time.perf_counter() - t0
+    with _phase(timings, "fine_mesh"):
+        mesh_f, _, _ = generate_channel_mesh(img_fname, lc, cfg)
     if (mesh_f.points.shape != warm.mesh.points.shape
             or mesh_f.cells.shape != warm.mesh.cells.shape):
         return None
-    t0 = time.perf_counter()
-    st_f = _setup_layered(mesh_f, inlet1, inlet2, dtype,
-                          _mg_levels(cfg.solver), device)
-    sync(device)
-    timings["fine_setup"] = time.perf_counter() - t0
+    with _phase(timings, "fine_setup", device):
+        st_f = _setup_layered(mesh_f, inlet1, inlet2, dtype,
+                              _mg_levels(cfg.solver), device)
     w0_f = torch.as_tensor(np.asarray(warm.w), dtype=dtype, device=device)
     # re-impose the (Re-independent) BC values exactly
     w0_f = st_f.mask * w0_f + (1.0 - st_f.mask) * st_f.g

@@ -24,6 +24,7 @@ from ..assemble.assembly import (
 from ..assemble.layered import (
     LayeredArrays, layered_diag_blocks, layered_matvec, make_layered_op,
     matrix_values_layered, residual_layered)
+from ..utils.profiling import read, span
 from .krylov import KrylovResult, cg, fgmres
 from .newton import NewtonResult, newton_solve
 from .refine import RefineResult, refine_newton
@@ -195,8 +196,10 @@ def residual_norm_layered(
     E: int,
 ) -> float:
     """||F(w)|| with the BC rows substituted (w - g)."""
-    r = residual_layered(kernel, n2d, n_planes, bs, arrays, w)
-    return float(torch.linalg.vector_norm(mask * r + (1.0 - mask) * (w - g)))
+    with span("residual"):
+        r = residual_layered(kernel, n2d, n_planes, bs, arrays, w)
+        return read(torch.linalg.vector_norm(mask * r
+                                             + (1.0 - mask) * (w - g)))
 
 
 def solve_newton_layered(

@@ -4,9 +4,11 @@ Counterparts of the JAX package's ``solve/krylov.py``.  The vectors live
 on the device; the scalar recurrences (step lengths, Givens rotations,
 convergence tests) run on the host in float64, with one device->host
 read of the inner products each step needs (where the JAX loops test
-their flags on the device).  Every method keeps the JAX arithmetic order
-and stopping rules, so iteration counts agree to the last bits of the
-inner products.
+their flags on the device; each read counts as one ``host_reads``,
+utils/profiling.py).  FGMRES and TFQMR record a span per solve and
+count their iterations (``krylov_its``).  Every method keeps the JAX
+arithmetic order and stopping rules, so iteration counts agree to the
+last bits of the inner products.
 
 Under ranks (parallel/): ``cg``, ``tfqmr`` and ``fgmres`` take
 ``reduce``, a function that sums a tensor over the ranks (each rank holds
@@ -18,11 +20,14 @@ no such call is made and the operations are those of a single process.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..utils.profiling import count, read, span
 
 
 @dataclasses.dataclass
@@ -37,6 +42,18 @@ def _ident(x):
     return x
 
 
+def _traced(method):
+    """Record each call of ``method`` as a span of its name and count its
+    iterations as ``krylov_its`` under that name."""
+    @functools.wraps(method)
+    def traced(*args, **kw):
+        with span(method.__name__):
+            res = method(*args, **kw)
+        count("krylov_its", res.iters, method.__name__)
+        return res
+    return traced
+
+
 def _norm_t(v: torch.Tensor, reduce=None) -> torch.Tensor:
     """|v| as a 0-d tensor; under ranks the root of the summed squares."""
     if reduce is None:
@@ -45,7 +62,7 @@ def _norm_t(v: torch.Tensor, reduce=None) -> torch.Tensor:
 
 
 def _norm(v: torch.Tensor, reduce=None) -> float:
-    return float(_norm_t(v, reduce))
+    return read(_norm_t(v, reduce))
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor, reduce=None) -> torch.Tensor:
@@ -56,7 +73,7 @@ def _dot(a: torch.Tensor, b: torch.Tensor, reduce=None) -> torch.Tensor:
 
 def _reads(*scalars: torch.Tensor):
     """Several 0-d tensors to Python floats with one device->host read."""
-    return torch.stack(scalars).tolist()
+    return read(torch.stack(scalars), torch.Tensor.tolist)
 
 
 def _norm_and_dot(v, a, b, reduce=None):
@@ -64,7 +81,8 @@ def _norm_and_dot(v, a, b, reduce=None):
     ranks, one reduction of the stacked partial sums."""
     if reduce is None:
         return _reads(torch.linalg.vector_norm(v), torch.dot(a, b))
-    vv, ab = reduce(torch.stack([torch.dot(v, v), torch.dot(a, b)])).tolist()
+    vv, ab = read(reduce(torch.stack([torch.dot(v, v), torch.dot(a, b)])),
+                  torch.Tensor.tolist)
     return math.sqrt(vv), ab
 
 
@@ -93,7 +111,7 @@ def cg(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000,
     it = 0
     while rn > tol and it < max_it:
         Ap = A(p)
-        alpha = _div(rz, float(_dot(p, Ap, reduce)))
+        alpha = _div(rz, read(_dot(p, Ap, reduce)))
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
@@ -123,7 +141,7 @@ def bicgstab(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = A(phat)
-        alpha = _div(rho_new, float(torch.dot(rhat, v)))
+        alpha = _div(rho_new, read(torch.dot(rhat, v)))
         s = r - alpha * v
         shat = M(s)
         t = A(shat)
@@ -138,6 +156,7 @@ def bicgstab(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000
     return KrylovResult(x, it, rn, rn <= tol)
 
 
+@_traced
 def tfqmr(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000,
           reduce=None) -> KrylovResult:
     """Right-preconditioned transpose-free QMR (Freund 1993).
@@ -174,7 +193,7 @@ def tfqmr(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000,
         if even:
             # v is unchanged over the odd half-step that follows, so its
             # sigma serves both halves
-            sigma = float(_dot(rstar, v, reduce))
+            sigma = read(_dot(rstar, v, reduce))
             alpha = _div(rho, sigma)
         w = w - alpha * Bu
         d = Mu + _div(theta * theta * eta, alpha) * d
@@ -204,6 +223,7 @@ def tfqmr(A, b, x0=None, M=None, rtol=1e-10, atol=0.0, max_it=10000,
     return KrylovResult(x, it, _norm(b - A(x), reduce), converged)
 
 
+@_traced
 def fgmres(
     A: Callable,
     b: torch.Tensor,
@@ -249,7 +269,7 @@ def fgmres(
                 w = w - hij * V[i]
                 h.append(hij)
             hj1 = _norm_t(w, reduce)
-            H[:j + 2, j] = torch.stack(h + [hj1]).tolist()
+            H[:j + 2, j] = read(torch.stack(h + [hj1]), torch.Tensor.tolist)
             V[j + 1] = w / hj1 if H[j + 1, j] > 0 else w
             Z[j] = z
             # previous Givens rotations on column j, then the new one
@@ -310,7 +330,7 @@ def minres(
     x = torch.zeros_like(b) if x0 is None else x0
     r1 = b - A(x)
     y = M(r1)
-    beta1 = float(torch.dot(r1, y))
+    beta1 = read(torch.dot(r1, y))
     beta1 = math.sqrt(beta1) if beta1 >= 0 else math.nan
     tol = max(rtol * beta1, atol)
     eps_t = torch.finfo(b.dtype).tiny
@@ -324,12 +344,12 @@ def minres(
         y2 = A(v)
         if it >= 1:
             y2 = y2 - (beta / max(oldb, eps_t)) * r1
-        alfa = float(torch.dot(v, y2))
+        alfa = read(torch.dot(v, y2))
         y2 = y2 - (alfa / max(beta, eps_t)) * r2
         r1, r2 = r2, y2
         y = M(r2)
         oldb = beta
-        beta = math.sqrt(max(float(torch.dot(r2, y)), 0.0))
+        beta = math.sqrt(max(read(torch.dot(r2, y)), 0.0))
         oldeps = epsln
         delta = cs * dbar + sn * alfa
         gbar = sn * dbar - cs * alfa

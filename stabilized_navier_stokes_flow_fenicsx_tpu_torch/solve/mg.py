@@ -26,6 +26,8 @@ the coarsest level is inverted densely in float32 and polished by two
 Newton-Schulz steps.  Every level matvec is kernel K1
 (assemble/layered_spmv.py) on the card, with the level's BC projection
 fused in, and every plane-GS sweep kernel K2 (csrc/plane_gs.cu).
+The hierarchy's build, each ``make_mg_pc`` and each apply are spans
+(``mg_hierarchy``, ``mg_setup``, ``vcycle``; utils/profiling.py).
 
 Under ranks (parallel/layered_shard.py) level 0 is plane-sharded and the
 coarse levels are replicated: ``SlabFine`` carries what differs there.
@@ -47,6 +49,7 @@ import torch
 
 from ..assemble.layered_spmv import LayeredOperand, project_values
 from ..utils.device import row_ptr_of, upload
+from ..utils.profiling import span, traced
 from .krylov import _norm_t
 from .precond import block_jacobi
 
@@ -182,6 +185,7 @@ def _coarsen_level(
             mask_c.reshape(-1), n2d_c, Lp_c, E_c)
 
 
+@traced("mg_hierarchy")
 def build_mg_hierarchy(
     rows2d: np.ndarray, cols2d: np.ndarray, n2d: int, Lp: int,
     mask_np: np.ndarray, bs: int,
@@ -293,6 +297,7 @@ def galerkin_levels(
     return ops
 
 
+@traced("mg_setup")
 def make_mg_pc(
     hierarchy: MGHierarchy,
     values: torch.Tensor,         # fine (bs, bs, 3, E, Lp), unprojected
@@ -445,7 +450,8 @@ def make_mg_pc(
         return x
 
     def apply(r):
-        return cycle(0, r)
+        with span("vcycle"):
+            return cycle(0, r)
 
     return apply
 

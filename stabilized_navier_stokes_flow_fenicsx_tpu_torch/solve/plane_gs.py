@@ -42,8 +42,10 @@ inverses and compute in float32; the JAX package rounds the whole sweep
 is cast to the iterate's type and the result back to r's.
 
 The kernel is built at first use with ``nvcc`` into
-``build/torch_kernels/`` (utils/nvcc.py).  ``LAUNCHES`` and
-``LAUNCHES_BY_DTYPES`` count kernel launches.
+``build/torch_kernels/`` (utils/nvcc.py).  Each launch adds one to the
+tracer's counter ``k2_launch`` under its shape (E, Lp, n2d, values
+dtype, iterate dtype, inner_sweeps, symmetric; utils/profiling.py);
+``LAUNCHES`` and ``LAUNCHES_BY_DTYPES`` read it.
 """
 
 from __future__ import annotations
@@ -51,16 +53,17 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..assemble.layered_spmv import dtype_name, launch_attr
 from ..utils import nvcc
+from ..utils.profiling import count, counts, read
 
-LAUNCHES = 0          # kernel launches since import (or the last reset)
-# the same launches by (values dtype, iterate dtype)
-LAUNCHES_BY_DTYPES: Dict[Tuple[torch.dtype, torch.dtype], int] = {}
+COUNTER = "k2_launch"
+_reset_at: Dict = {}      # the counter at the last ``reset_launches``
 
 CLUSTER_SIZES = (1, 2, 4, 8, 16)   # 16 needs the non-portable size
 SMEM_LIMIT = 232_448               # dynamic shared memory a block may take
@@ -278,6 +281,10 @@ class PlaneGSOperand:
         self._cuda = dev.type == "cuda"
         if self._cuda:
             self._fn = build().plane_gs
+            # the launch's shape, the key of its count
+            self._key = (E, Lp, n2d, dtype_name(vdtype),
+                         dtype_name(self.adtype), self.inner_sweeps,
+                         self.symmetric)
             self._dev_index = dev.index if dev.index is not None \
                 else torch.cuda.current_device()
             plan = self.plan
@@ -303,7 +310,8 @@ class PlaneGSOperand:
                     raise RuntimeError(f"plane_gs: occupancy query failed "
                                        f"(cudaError {-n})")
                 return n >= 1
-        return make_plan(self.row_ptr.cpu().numpy(), self.cols.cpu().numpy(),
+        return make_plan(read(self.row_ptr, torch.Tensor.cpu).numpy(),
+                         read(self.cols, torch.Tensor.cpu).numpy(),
                          self.values.element_size(),
                          self.mask.element_size(), self.cluster, schedulable)
 
@@ -334,7 +342,6 @@ class PlaneGSOperand:
                 f"{r.device}")
         if not self._cuda:
             return plane_gs_plain(self, r)
-        global LAUNCHES
         rr = r.to(self.adtype).contiguous()
         if rr.data_ptr() % 16:          # the bulk copies want 16 bytes
             rr = rr.clone()
@@ -349,9 +356,7 @@ class PlaneGSOperand:
                 f"plane_gs: launch failed (cudaError {err}; cluster of "
                 f"{self.plan.cluster} blocks, {self.plan.threads} threads, "
                 f"{self.plan.smem_bytes} bytes of shared memory each)")
-        LAUNCHES += 1
-        key = (self.vdtype, self.adtype)
-        LAUNCHES_BY_DTYPES[key] = LAUNCHES_BY_DTYPES.get(key, 0) + 1
+        count(COUNTER, key=self._key)
         return x.to(r.dtype)
 
     def _launch(self, r, x) -> int:
@@ -414,8 +419,13 @@ def plane_gs_plain(op: PlaneGSOperand, r: torch.Tensor) -> torch.Tensor:
     return torch.stack(X).reshape(-1).to(r.dtype)
 
 
+def __getattr__(name: str):
+    """``LAUNCHES`` and ``LAUNCHES_BY_DTYPES`` (by (values dtype, iterate
+    dtype)): K2 launches since import or the last ``reset_launches``."""
+    return launch_attr(COUNTER, _reset_at, name)
+
+
 def reset_launches() -> None:
-    """Set the launch counts to 0."""
-    global LAUNCHES
-    LAUNCHES = 0
-    LAUNCHES_BY_DTYPES.clear()
+    """Count the launches from now."""
+    _reset_at.clear()
+    _reset_at.update(counts(COUNTER))

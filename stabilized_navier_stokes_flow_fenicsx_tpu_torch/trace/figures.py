@@ -3,7 +3,8 @@
 The three figures are written as SVG text: each draws its points in a
 square frame of +-``limits`` without ticks, under the reference's
 title, in the reference's default colour.  Scatter markers are the
-``<circle>`` elements of the ``<g id="scatter">`` group, one a point."""
+``<circle>`` elements of the ``<g id="scatter">`` group, one a point.
+``save_trace_figures`` is the span ``figures`` (utils/profiling.py)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import os
 from xml.sax.saxutils import escape
 
 import numpy as np
+
+from ..utils.profiling import traced
 
 SIZE, MARGIN = 432.0, 36.0       # canvas and frame margin, in points
 COLOR = "#1f77b4"
@@ -48,6 +51,7 @@ def _scatter(points: np.ndarray, limits: float, r: float) -> str:
     return f'<g id="scatter" fill="{COLOR}">\n{circles}</g>\n'
 
 
+@traced("figures")
 def save_trace_figures(
     folder: str,
     img_fname: str,

@@ -14,13 +14,15 @@ Replicates reference NavierStokes/streamtrace.py:556-664
      contour — their (y, z) are the predicted outlet profile (:536-553)
 
 The reference farms this over MPI ranks; here both traces are batched
-device programs (trace/streamtrace.py) on the given torch device.
+device programs (trace/streamtrace.py) on the given torch device.  Each
+step is a span (utils/profiling.py): ``contour``, ``locator``, ``rk45``
+(once per direction), ``alpha_shape``, ``outlet_mask``; the ``stats``
+walls are the lengths of ``locator`` and of the two ``rk45`` spans.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -31,7 +33,7 @@ from ..fem.interpolate import build_trace_locator
 from ..mesh.core import SimplexMesh
 from ..mesh.image import get_contours, load_image, optimize_contour
 from ..mesh.tri2d import points_in_polygon
-from ..utils.device import sync
+from ..utils.profiling import read, span
 from .alpha_shape import alpha_shape_polygon, expand_bbox
 from .streamtrace import TraceConfigDevice, trace_particles
 
@@ -97,30 +99,33 @@ def for_and_rev_streamtrace(
     device = default_device() if device is None else torch.device(device)
     dtype = default_dtype()
     tc = cfg.trace
-    contour3 = update_contour(img_fname, cfg)
+    with span("contour"):
+        contour3 = update_contour(img_fname, cfg)
     inner_contour = contour3[:, 1:3]
 
     stats: dict = {}
-    t0 = time.perf_counter()
-    dloc = build_trace_locator(mesh, dtype, device)
-    u_dev = torch.as_tensor(np.asarray(u_nodal), dtype=dtype, device=device)
-    sync(device)
-    stats["locator_build_s"] = time.perf_counter() - t0
+    with span("locator", device) as s:
+        dloc = build_trace_locator(mesh, dtype, device)
+        u_dev = torch.as_tensor(np.asarray(u_nodal), dtype=dtype,
+                                device=device)
+    stats["locator_build_s"] = s.seconds
 
     def trace(seeds, reverse):
-        return trace_particles(trace_config(tc, reverse), dloc, u_dev, seeds,
-                               reverse, chunk=SEED_CHUNK,
-                               stats=stats).cpu().numpy()
+        with span("rk45") as s:
+            ends = read(trace_particles(
+                trace_config(tc, reverse), dloc, u_dev, seeds, reverse,
+                chunk=SEED_CHUNK, stats=stats), torch.Tensor.cpu).numpy()
+        stats["rev_s" if reverse else "fwd_s"] = s.seconds
+        return ends
 
     seeds_fwd = np.hstack(
         [np.zeros((len(seed_points), 1)), seed_points])
-    t0 = time.perf_counter()
     fwd_end = trace(seeds_fwd, False)
-    stats["fwd_s"] = time.perf_counter() - t0
     kept = fwd_end[fwd_end[:, 0] > tc.x_forward_keep]
 
     # expansion + reverse seed grid
-    poly = alpha_shape_polygon(kept[:, 1:3], tc.alpha)
+    with span("alpha_shape"):
+        poly = alpha_shape_polygon(kept[:, 1:3], tc.alpha)
     minx, maxx, miny, maxy = expand_bbox(poly[:, 0], poly[:, 1], tc.blurr)
     ys = np.linspace(minx, maxx, num_seeds)
     zs = np.linspace(miny, maxy, num_seeds)
@@ -129,14 +134,13 @@ def for_and_rev_streamtrace(
     seeds_rev = np.hstack(
         [np.full((len(grid), 1), tc.x_seed_plane), grid])
 
-    t0 = time.perf_counter()
     rev_end = trace(seeds_rev, True)
-    stats["rev_s"] = time.perf_counter() - t0
     # reference: endpoints not back past x=0.5 are marked (10,10,10)
     rev_end = np.where(
         (rev_end[:, 0] < tc.x_forward_keep)[:, None], rev_end, 10.0)
 
-    inside = points_in_polygon(rev_end[:, 1:3], inner_contour)
+    with span("outlet_mask"):
+        inside = points_in_polygon(rev_end[:, 1:3], inner_contour)
     outlet = seeds_rev[inside][:, 1:3]
 
     return StreamtraceResult(

@@ -21,7 +21,10 @@ steps) holds takes one step, and every other lane keeps its state.  Lanes
 are independent, so this is exact.  A segment runs its ``seg_steps``
 iterations without reading anything back; the host reads one scalar per
 segment (the not-done count of the compaction).  Counters (``steps``,
-``seed_id``, ``lane_steps``) are 64-bit.
+``seed_id``, ``lane_steps``) are 64-bit.  Each round of segments is the
+span ``rk45.round``; rounds and segment calls are counted
+(``trace_rounds``, ``trace_dispatches``) and the host reads
+(``host_reads``, utils/profiling.py).
 
 FSAL carry: DP45's 7th stage IS the next step's first stage, and a
 rejected step restarts from the same x, so stage 0 is never re-evaluated
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..fem.interpolate import locate_any
+from ..utils.profiling import count, read, span
 
 # Dormand-Prince RK45 tableau
 _A = np.zeros((7, 7))
@@ -329,33 +333,39 @@ def trace_particles(
         state = init_trace_state(seeds, cfg, dloc, u_cell)
         n = state.x.shape[0]
         for _ in range(max_rounds):
-            state = trace_segment(cfg, dloc, u_cell, state, seg_steps)
-            if stats is not None:
-                stats["dispatches"] += 1
-                stats["lane_steps"] += n * seg_steps
-            if bool(state.done.all()):
-                break
+            with span("rk45.round"):
+                count("trace_rounds")
+                count("trace_dispatches")
+                state = trace_segment(cfg, dloc, u_cell, state, seg_steps)
+                if stats is not None:
+                    stats["dispatches"] += 1
+                    stats["lane_steps"] += n * seg_steps
+                if read(state.done.all(), bool):
+                    break
         if stats is not None:
             stats["seeds"] += n
-            stats["seed_steps"] += int(state.steps.sum())
+            stats["seed_steps"] += read(state.steps.sum(), int)
         return state.x
 
     st = _init_full_state(
         torch.as_tensor(seeds, dtype=u_cell.dtype, device=u_cell.device),
         cfg.max_step)
     for _ in range(max_rounds):
-        st, n_active = _compact_state(st)
-        na = int(n_active)                # the ONLY per-round host read
-        if na == 0:
-            break
-        for offset in range(0, na, chunk):
-            st = _run_chunk(cfg, dloc, u_cell, st,
-                            min(chunk, na - offset), offset, seg_steps)
-            if stats is not None:
-                stats["dispatches"] += 1
+        with span("rk45.round"):
+            st, n_active = _compact_state(st)
+            na = read(n_active, int)      # the ONLY per-round host read
+            if na == 0:
+                break
+            count("trace_rounds")
+            for offset in range(0, na, chunk):
+                st = _run_chunk(cfg, dloc, u_cell, st,
+                                min(chunk, na - offset), offset, seg_steps)
+                count("trace_dispatches")
+                if stats is not None:
+                    stats["dispatches"] += 1
     ends, seed_steps = _finalize_full_state(st)
     if stats is not None:
         stats["seeds"] += st.x.shape[0]
-        stats["seed_steps"] += int(seed_steps)
+        stats["seed_steps"] += read(seed_steps, int)
         stats["lane_steps"] += st.lane_steps
     return ends

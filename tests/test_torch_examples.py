@@ -5,13 +5,16 @@ Each ``examples/torch_*.py`` ``main(device="cpu")`` against its JAX twin
 same printed lines (the error figures to two digits are part of them
 only where they are not roundoff: the Burgers iteration line is
 compared, the 1e-13 residual figures are not).  ``main()`` without a
-card raises.  ``PhaseTimer`` accumulates and reports; ``device_trace``
-does nothing for ``None`` and writes a Chrome trace otherwise.
+card raises.  The tracer's spans accumulate by name within a case, a
+span that raises included; ``device_trace`` does nothing for ``None``
+and otherwise writes a Chrome trace with the block's program spans as a
+host track.
 """
 
 import importlib.util
 import json
 import pathlib
+import time
 
 import pytest
 
@@ -20,8 +23,10 @@ pytest.importorskip("jax")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import (  # noqa: E402
+    profiling)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (  # noqa: E402
-    PhaseTimer, device_trace)
+    device_trace, span)
 
 from torch_cases import rel_l2  # noqa: E402
 
@@ -64,18 +69,21 @@ def test_example_raises_without_a_card(name):
 
 
 def test_phase_timer_accumulates():
-    t = PhaseTimer()
-    for _ in range(2):
-        with t.phase("a"):
-            pass
-    with pytest.raises(ValueError):
-        with t.phase("b"):
-            raise ValueError("still timed")
-    assert set(t.timings) == {"a", "b"}
-    assert all(v >= 0.0 for v in t.timings.values())
-    lines = t.report().splitlines()
-    assert len(lines) == 2 and lines[0].startswith("a ")
-    assert PhaseTimer().report() == ""
+    with span("case"):
+        a = []
+        for _ in range(2):
+            with span("a") as s:
+                pass
+            a.append(s.seconds)
+        with pytest.raises(ValueError):
+            with span("b") as b:
+                raise ValueError("still timed")
+    case = profiling.cases()[-1]
+    assert set(case.inclusive_s) == {"case", "a", "b"}
+    assert case.inclusive_s["a"] == pytest.approx(sum(a), rel=1e-12)
+    assert case.inclusive_s["b"] == pytest.approx(b.seconds, rel=1e-12)
+    assert all(v >= 0.0 for v in case.self_s.values())
+    assert case.n_spans == 4
 
 
 def test_device_trace(tmp_path):
@@ -85,6 +93,14 @@ def test_device_trace(tmp_path):
     assert list(tmp_path.iterdir()) == []
     logdir = tmp_path / "trace"
     with device_trace(str(logdir)):
-        torch.ones(8).mul(2.0).sum()
+        with span("doubling"):
+            time.sleep(0.002)             # margins for the clock's conversion
+            torch.ones(8).mul(2.0).sum()
+            time.sleep(0.002)
     events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
-    assert any("mul" in e.get("name", "") for e in events)
+    mul = [e for e in events if "mul" in e.get("name", "")]
+    host = [e for e in events if e.get("cat") == "program"]
+    assert mul and [e["name"] for e in host] == ["doubling"]
+    # one clock: the host span holds the op it ran
+    assert host[0]["ts"] <= mul[0]["ts"]
+    assert mul[0]["ts"] + mul[0]["dur"] <= host[0]["ts"] + host[0]["dur"]

@@ -44,6 +44,8 @@ from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import 
     make_ns_sups_kernel)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
     galerkin_levels)
+from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+    counts)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
     make_annulus_image)
 
@@ -102,9 +104,14 @@ def _check_levels(levels, vdtype, xdtype, tol, masked):
         x = torch.as_tensor(rng.standard_normal(op.mask.numel()),
                             device=op.values.device).to(xdtype)
         before = layered_spmv.LAUNCHES
+        shapes = counts("k1_launch")
         y = K(x)
         torch.cuda.synchronize()
         assert layered_spmv.LAUNCHES == before + 1
+        # the tracer's shape counter: one launch of this shape
+        shape = (K.E, K.Lp, K.n2d, layered_spmv.dtype_name(K.values.dtype),
+                 layered_spmv.dtype_name(xdtype), masked)
+        assert counts("k1_launch", shapes) == {shape: 1}
         y_plain = layered_spmv.layered_matvec_plain(K, x)
         assert layered_spmv.LAUNCHES == before + 1
         assert y.dtype == xdtype and torch.isfinite(y).all()

@@ -42,9 +42,13 @@ from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
     solve_inlet_profiles)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
     make_ns_sups_kernel)
+from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered_spmv import (
+    dtype_name)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
     galerkin_levels)
+from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+    counts)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
     make_annulus_image)
 
@@ -126,9 +130,14 @@ def test_launches_counted_by_type_pair(levels):
 def _check(K, r, tol, what):
     """One launch of K against the plain version on r."""
     before = plane_gs.LAUNCHES
+    shapes = counts("k2_launch")
     x = K(r)
     torch.cuda.synchronize()
     assert plane_gs.LAUNCHES == before + 1
+    # the tracer's shape counter: one launch of this shape
+    shape = (K.E, K.Lp, K.n2d, dtype_name(K.vdtype), dtype_name(K.adtype),
+             K.inner_sweeps, K.symmetric)
+    assert counts("k2_launch", shapes) == {shape: 1}, what
     x_plain = plane_gs.plane_gs_plain(K, r)
     assert x.dtype == r.dtype and torch.isfinite(x).all(), what
     assert _rel_l2(x, x_plain) <= tol, what
