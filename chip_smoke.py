@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit) and builds kernels
-   K1 (the layered SpMV, csrc/layered_spmv.cu) and K2 (the plane
-   Gauss-Seidel sweep, csrc/plane_gs.cu) with nvcc into
-   build/torch_kernels/, both at once;
+   K1 (the layered SpMV, csrc/layered_spmv.cu), K2 (the plane
+   Gauss-Seidel sweep, csrc/plane_gs.cu) and K3 (the trace's RK45,
+   csrc/streamtrace.cu) with nvcc into build/torch_kernels/, all at
+   once, and prints ptxas's registers and spills;
 2. assembles the lc=0.04 production channel (230,692 dofs) at the stored
    solution's state, with its multigrid hierarchy, and holds K1's
    prepared operand against its plain PyTorch version for the five
@@ -30,8 +31,13 @@
    tests/fixtures/trace_prod.npz (the JAX package's CPU-f64 trace of the
    stored field): the inside/outside mask agrees on >= 99.9% of the
    seeds, the outlet-point count is within 0.2%, the kept forward
-   endpoints are as many; writes final_output.csv and outlet.png under
-   build/chip_smoke/;
+   endpoints are as many, and both directions ran K3; writes
+   final_output.csv and outlet.png under build/chip_smoke/; then K3's
+   row on that reverse grid (``k3_row``): K3 alone (CUDA events, median
+   of 5, L2 warm) in float64 and in float32, beside its two bounds (the
+   tables, seeds and outputs once over 3.35 TB/s; the longest lane's
+   steps x 6 evaluations x 4 dependent loads at the L2 latency that
+   ``streamtrace.chase`` measures) and the plain version's time;
 5. traces the stored field itself forward, on a locator whose every
    tensor is on the card, and holds the kept endpoints to the fixture's:
    (y, z) within 1e-6, x within the event bisection's resolution (the
@@ -222,8 +228,9 @@
    0.2% of JAX's f64 trace of its Re=40 field and of 21,734 (bench.py's
    round-5 record), seed_steps within 1% of JAX's f64 count (JAX's
    float32 count of the same field and round 5's 931,396, traced in
-   float32 on the TPU, printed beside); prints every
-   wall beside the card's name and power limit;
+   float32 on the TPU, printed beside), and K3's row on that reverse
+   grid as in phase 4; prints every wall beside the card's name and
+   power limit;
 20. prints one JSON line of kernel results (error: the largest over the
    levels checked in phases 2, 11 and 14; times, bound and library time:
    level 0 of the channel with the mask fused, as the solve calls it, L2
@@ -246,8 +253,11 @@
    ``cluster`` and ``barrier_chain_ms`` there, the launches of phase 3
    for f64, of phase 15's ``mg_bf16`` solve for bf16 and of phase 16 for
    f32), then the final JSON status line.
-   The trace, the block-CSR path and the host-LU path run no
-   hand-written kernel, so they add no entry.
+   K3's entries (float64, float32): its launches in phases 4, 17 and
+   19, its time, bounds and plain time on the lc=0.04 reverse grid and
+   at the bench problem (``ms_bench``), ptxas's registers and spills.
+   The block-CSR path and the host-LU path run no hand-written kernel,
+   so they add no entry.
 
 Exits nonzero, with no result, without a CUDA card or without the
 repository beside it.  Nothing here imports JAX.
@@ -255,6 +265,7 @@ repository beside it.  Nothing here imports JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -662,12 +673,17 @@ def run_trace(torch, np, img, sol, device):
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
         for_and_rev_streamtrace)
 
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
+        streamtrace)
+
     fx = np.load(TRACE_FIXTURE)
     inlet1, _ = solve_inlet_profiles(img, RATIO, DEFAULT)
+    streamtrace.reset_launches()
     t0 = time.perf_counter()
     res = for_and_rev_streamtrace(NUM_SEEDS, img, sol.mesh, sol.u,
                                   inlet1.mesh.points, DEFAULT, device=device)
     wall = time.perf_counter() - t0
+    k3_launches = streamtrace.LAUNCHES
     st = res.stats
     inside = points_in_polygon(res.reverse_endpoints[:, 1:3],
                                res.inner_contour)
@@ -679,8 +695,8 @@ def run_trace(torch, np, img, sol, device):
           f"{st['locator_build_s']:.4f}, fwd_s {st['fwd_s']:.4f}, rev_s "
           f"{st['rev_s']:.4f}; seeds {st['seeds']}, seed_steps "
           f"{st['seed_steps']} (fixture {int(fx['seed_steps'])}), "
-          f"lane_steps {st['lane_steps']}, dispatches {st['dispatches']}",
-          flush=True)
+          f"lane_steps {st['lane_steps']}, dispatches {st['dispatches']}, "
+          f"K3 launches {k3_launches}", flush=True)
     print(f"trace vs trace_prod.npz: kept forward {len(fe)} (fixture "
           f"{len(fe_ref)}), outlet points {n_out} (fixture {n_out_ref}), "
           f"mask flips {flips} of {len(inside)}", flush=True)
@@ -712,7 +728,13 @@ def run_trace(torch, np, img, sol, device):
     if len(fe) != len(fe_ref):
         raise RuntimeError(f"kept forward endpoints {len(fe)} vs fixture "
                            f"{len(fe_ref)}")
-    return inlet1
+    if k3_launches != 2:
+        raise RuntimeError(f"the trace launched K3 {k3_launches} times, "
+                           f"not once per direction")
+    row = k3_row(torch, np, sol.mesh, sol.u, res.seeds, device,
+                 "lc=0.04 reverse grid")
+    row["launches"] = k3_launches
+    return inlet1, row
 
 
 def check_trace_arithmetic(torch, np, sol, inlet1, device):
@@ -755,6 +777,106 @@ def check_trace_arithmetic(torch, np, sol, inlet1, device):
     if d[:, 1:].max() > 1e-6 or d[:, 0].max() > x_res:
         raise RuntimeError("stored field: kept forward endpoints disagree "
                            "with the fixture")
+
+
+K3_REPLACES = ("none: the JAX package traces with jnp code "
+               "(stabilized_navier_stokes_flow_fenicsx_tpu/trace/"
+               "streamtrace.py::trace_segment under vmap), no Pallas kernel")
+CHASE_LOADS = 100_000       # dependent loads a latency reading follows
+
+
+def ptxas_lines(np) -> dict:
+    """K3's registers and spill bytes by instantiation, from this
+    process's nvcc log (utils/nvcc.py::LOGS)."""
+    import re
+
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import nvcc
+
+    out, fn = {}, None
+    for line in nvcc.LOGS.get("streamtrace", "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = ("float64" if "IdE" in m.group(1) else "float32"
+                  if "IfE" in m.group(1) else "chase")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out.setdefault(fn, {}).update(spill_stores=int(m.group(1)),
+                                          spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
+def load_latency_ns(torch, device, nbytes: int) -> float:
+    """ns per load of one thread chasing a random cycle through an int64
+    table of ``nbytes`` (K3's yardstick: L2 for a table L2 holds)."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
+        streamtrace)
+
+    m = nbytes // 8
+    perm = torch.randperm(m, device=device)
+    nxt = torch.empty(m, dtype=torch.int64, device=device)
+    nxt[perm] = torch.roll(perm, -1)
+    streamtrace.chase(nxt, CHASE_LOADS)          # warm: the cycle cached
+    ms = time_ms(lambda: streamtrace.chase(nxt, CHASE_LOADS), n=3)
+    return ms * 1e6 / CHASE_LOADS
+
+
+def k3_row(torch, np, mesh, u, seeds, device, label: str) -> dict:
+    """K3 alone on ``seeds`` (a reverse grid) of the field ``u`` on
+    ``mesh``, float64 and float32, with its bounds and the plain
+    version's time."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.fem.interpolate import (
+        build_trace_locator)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
+        streamtrace)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
+        SEED_CHUNK, trace_config)
+
+    cfg = trace_config(DEFAULT.trace, reverse=True)
+    cfg_k3 = dataclasses.replace(cfg, sign=-1.0)
+    l2_ns = load_latency_ns(torch, device, 8 * 2 ** 20)
+    row = {"label": label, "lanes": len(seeds), "l2_latency_ns": l2_ns}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        dloc = build_trace_locator(mesh, dtype, device)
+        u_cell = streamtrace.pack_u_cells(
+            dloc, torch.as_tensor(u, dtype=dtype, device=device))
+        x0 = torch.as_tensor(seeds, dtype=dtype, device=device)
+        ms = time_ms(lambda: streamtrace.trace_k3(cfg_k3, dloc, u_cell, x0),
+                     n=5)
+        _, steps, done = streamtrace.trace_k3(cfg_k3, dloc, u_cell, x0)
+        longest = int(steps.max())
+        tables = (dloc.x_planes, dloc.tab2, dloc.prism_base,
+                  dloc.prism_geom, u_cell)
+        nbytes = (sum(t.numel() * t.element_size() for t in tables)
+                  + 2 * x0.numel() * x0.element_size() + 9 * len(seeds))
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_chain = longest * 6 * 4 * l2_ns * 1e-6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streamtrace.trace_particles_plain(cfg, dloc, u_cell.new_tensor(u),
+                                          seeds, reverse=True,
+                                          chunk=SEED_CHUNK)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        row[name] = dict(ms=ms, bound_bytes_ms=bound_bytes,
+                         bound_chain_ms=bound_chain, table_bytes=nbytes,
+                         longest_lane_steps=longest,
+                         seed_steps=int(steps.sum()), done=int(done.sum()),
+                         plain_ms=plain_ms)
+        print(f"K3 {label} {name}: {ms:.3f} ms for {len(seeds)} lanes "
+              f"(longest {longest} steps, seed_steps {int(steps.sum())}, "
+              f"done {int(done.sum())}); bounds: bytes {bound_bytes:.4f} ms "
+              f"({nbytes / 2 ** 20:.1f} MiB), chain {bound_chain:.3f} ms "
+              f"({longest} x 6 x 4 loads at {l2_ns:.1f} ns, the L2 "
+              f"latency); plain version {plain_ms:.1f} ms", flush=True)
+    row["ptxas"] = ptxas_lines(np)
+    print(f"K3 ptxas: {json.dumps(row['ptxas'])}", flush=True)
+    return row
 
 
 def run_warm_sweep(torch, np, img, sol, device):
@@ -1935,6 +2057,8 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
         solve_inlet_profiles)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
+        streamtrace)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
         for_and_rev_streamtrace)
 
@@ -1981,6 +2105,7 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
     stokes_res = []
     layered_spmv.reset_launches()
     plane_gs.reset_launches()
+    streamtrace.reset_launches()
     try:
         for module in (inlet_batch, ns_channel):
             clock.wrap(module, "solve_ns_flow", "solve")
@@ -2020,6 +2145,7 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
         clock.restore()
         os.chdir(cwd)
     k1, k2 = counts()
+    k3 = streamtrace.LAUNCHES
 
     print(f"phase 17 on {card}", flush=True)
     # the sweep: Re=10 cold through the apps' route, Re=20 warm from it
@@ -2156,11 +2282,15 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
           flush=True)
     _bar(layered_spmv.LAUNCHES > 0 and plane_gs.LAUNCHES > 0,
          "the apps path launched K1 and K2")
+    # the sweep's two run_trace_save traces and streamtrace_cli's: one
+    # launch a direction each
+    _bar(k3 == 6, f"the apps path's three traces launched K3 6 times "
+                  f"({k3})")
     loaded = [m for m in ("h5py", "matplotlib") if m in sys.modules]
     _bar(not loaded, f"neither h5py nor matplotlib imported ({loaded})")
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({card})",
           flush=True)
-    return k1, k2
+    return k1, k2, k3
 
 
 def run_clis(torch, cli, card):
@@ -2491,11 +2621,15 @@ def run_bench_problem(torch, np, img, card, device):
     walls["trace_cold"] = trace["cold"]["wall_s"]
     walls["trace_warm"] = trace["warm"]["wall_s"]
     walls["io"] = io_write_s + io_read_s
+    t0 = time.perf_counter()
+    k3 = k3_row(torch, np, mesh_r, u_r, res.seeds, device,
+                f"bench lc={lc:g} reverse grid")
+    walls["k3_row"] = time.perf_counter() - t0
     walls["phase"] = time.perf_counter() - t_phase
     print(f"phase 19 walls (s): "
           f"{json.dumps({k: round(v, 3) for k, v in walls.items()})} "
           f"({card})", flush=True)
-    return k1, k2, k1_launches, k2_launches
+    return k1, k2, k1_launches, k2_launches, k3
 
 
 def _dtypes(torch, pair) -> tuple:
@@ -2528,6 +2662,8 @@ def main() -> int:
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
+        streamtrace)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import nvcc
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
         make_annulus_image)
@@ -2544,12 +2680,14 @@ def main() -> int:
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on {kind}",
           flush=True)
 
-    # both kernels' nvcc runs at once, then each wrapper loads its library
+    # the kernels' nvcc runs at once, then each wrapper loads its library
     t0 = time.perf_counter()
-    nvcc.build("layered_spmv", "plane_gs")
+    nvcc.build(*nvcc.KERNELS)
     layered_spmv.build()
     plane_gs.build()
-    print(f"K1 and K2 build: {time.perf_counter() - t0:.2f} s", flush=True)
+    streamtrace.build()
+    print(f"K1, K2 and K3 build: {time.perf_counter() - t0:.2f} s",
+          flush=True)
     print("\n".join(line for log in nvcc.LOGS.values()
                     for line in log.splitlines() if "ptxas" in line),
           flush=True)
@@ -2564,7 +2702,7 @@ def main() -> int:
                               PAIRS, device)
         launches, k2_main, sol, f64_wall = run_main_path(torch, np, img,
                                                          device)
-        inlet1 = run_trace(torch, np, img, sol, device)
+        inlet1, k3 = run_trace(torch, np, img, sol, device)
         check_trace_arithmetic(torch, np, sol, inlet1, device)
         sol20 = run_warm_sweep(torch, np, img, sol, device)
         tfqmr_launches = run_tfqmr_main_path(torch, np, img, device)
@@ -2578,11 +2716,11 @@ def main() -> int:
         k2_checks, k2_bf16 = run_plane_gs(torch, np, img, device)
         f32_launches, k2_f32 = run_f32_main_path(torch, np, img, device,
                                                  f64_wall)
-        apps_launches, k2_apps = run_apps(torch, np, img, sol20, card,
-                                          device)
+        apps_launches, k2_apps, k3_apps = run_apps(torch, np, img, sol20,
+                                                   card, device)
         run_clis(torch, cli, card)
-        k1_bench, k2_bench, k1_bench_launches, k2_bench_launches = \
-            run_bench_problem(torch, np, img, card, device)
+        k1_bench, k2_bench, k1_bench_launches, k2_bench_launches, \
+            k3_bench = run_bench_problem(torch, np, img, card, device)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
@@ -2675,7 +2813,27 @@ def main() -> int:
         library_ms=None,
         library="none: no single PyTorch call computes a plane Gauss-Seidel "
                 "sweep")
-        for vname, aname, _, path in K2_PAIRS]}), flush=True)
+        for vname, aname, _, path in K2_PAIRS] + [dict(
+        name=f"streamtrace[{name}]", route="cuda",
+        source=f"{PKG}/csrc/streamtrace.cu", replaces=K3_REPLACES,
+        launches=k3["launches"] if name == "float64" else 0,
+        path="main" if name == "float64" else "k3 row",
+        launches_apps=k3_apps if name == "float64" else 0,
+        lanes=k3["lanes"], ms=k3[name]["ms"],
+        bound_ms=max(k3[name]["bound_bytes_ms"], k3[name]["bound_chain_ms"]),
+        bound_by=("bytes" if k3[name]["bound_bytes_ms"]
+                  >= k3[name]["bound_chain_ms"] else "latency"),
+        bound_bytes_ms=k3[name]["bound_bytes_ms"],
+        bound_chain_ms=k3[name]["bound_chain_ms"],
+        longest_lane_steps=k3[name]["longest_lane_steps"],
+        l2_latency_ns=k3["l2_latency_ns"], plain_ms=k3[name]["plain_ms"],
+        ms_bench=k3_bench[name]["ms"],
+        bound_bytes_ms_bench=k3_bench[name]["bound_bytes_ms"],
+        bound_chain_ms_bench=k3_bench[name]["bound_chain_ms"],
+        plain_ms_bench=k3_bench[name]["plain_ms"],
+        ptxas=k3["ptxas"].get(name), library_ms=None,
+        library="none: no PyTorch call integrates an ODE")
+        for name in ("float64", "float32")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -56,7 +56,8 @@ def load_old(directory: str):
     spec.loader.exec_module(mod)
     csrc = os.path.join(os.path.abspath(directory), "csrc")
     mod.nvcc = types.SimpleNamespace(
-        build=lambda *names: nvcc.build(*names, csrc=csrc))
+        build=lambda *names: nvcc.build(*names, csrc=csrc),
+        kernel=lambda name: nvcc.build(name, csrc=csrc)[0])
     return mod
 
 

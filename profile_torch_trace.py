@@ -11,10 +11,11 @@ Prints each run's wall and its ``stats``, the profiled run's device
 busy share (the union of the kernels' device intervals over the
 profiled wall, both from that one run), its program spans with their
 host time, the card's idle time they hold and their host reads
-(``profile_torch_solve.py::span_table``), the kernel launches per
-masked RK iteration and the kernels with the most device time; writes
-the full tables to ``--out``.  The last line is one JSON
-summary.  Exits nonzero without a CUDA card.  Imports no JAX.
+(``profile_torch_solve.py::span_table``), the kernel launches of the
+profiled run and how many of them were K3's (the RK45 kernel, one per
+direction) and the kernels with the most device time; writes the full
+tables to ``--out``.  The last line is one JSON summary.  Exits nonzero
+without a CUDA card.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -55,8 +56,8 @@ def main() -> int:
         solve_inlet_profiles)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
         for_and_rev_streamtrace)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.streamtrace import (
-        SEG_STEPS)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
+        streamtrace)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import (
         profiling)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
@@ -90,16 +91,15 @@ def main() -> int:
     warm, stats = trace("warm")
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
+    streamtrace.reset_launches()
     with torch.profiler.profile(activities=act) as prof:
         with profiling.span("case"):
             prof_wall, _ = trace("profiled")
+    k3_launches = streamtrace.LAUNCHES
     events = prof.events()
     busy = busy_us(events) / 1e6
     spans = span_table(prof, profiling.cases()[-1])
     n_kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
-    # masked RK iterations run: SEG_STEPS per segment call, segment calls
-    # = dispatches (forward + reverse)
-    iters = SEG_STEPS * stats["dispatches"]
     avg = prof.key_averages()
     dev_attr = ("self_device_time_total" if hasattr(avg[0],
                 "self_device_time_total") else "self_cuda_time_total")
@@ -118,11 +118,11 @@ def main() -> int:
                    warm_fwd_s=stats["fwd_s"], warm_rev_s=stats["rev_s"],
                    profiled_s=prof_wall, device_busy_s=busy,
                    busy_share_profiled=busy / prof_wall,
-                   kernel_launches=n_kernels, rk_iterations=iters,
-                   launches_per_iteration=n_kernels / iters, **spans)
+                   kernel_launches=n_kernels, k3_launches=k3_launches,
+                   **spans)
     print(f"device busy {busy:.3f} s of the profiled {prof_wall:.3f} s "
           f"wall: {100 * busy / prof_wall:.1f}%; {n_kernels} kernel "
-          f"launches over {iters} masked RK iterations", flush=True)
+          f"launches, {k3_launches} of them K3's", flush=True)
     print(json.dumps(summary), flush=True)
     return 0
 

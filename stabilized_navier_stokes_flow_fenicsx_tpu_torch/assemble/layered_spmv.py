@@ -132,7 +132,7 @@ def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
     global _LIB
     if _LIB is None:
-        lib, = nvcc.build("layered_spmv")
+        lib = nvcc.kernel("layered_spmv")
         lib.layered_spmv.restype = ctypes.c_int
         lib.layered_spmv.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

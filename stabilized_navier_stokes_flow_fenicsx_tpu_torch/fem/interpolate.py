@@ -172,6 +172,10 @@ def interpolate_p1_np(
 
 # ---- device query path (the batched streamtracer) --------------------------
 
+# barycentric tolerance of the device locators (and of K3's, which is
+# handed this value: trace/streamtrace.py)
+LOCATE_TOL = 1e-6
+
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
     """Index of the first True along the last axis (0 where none is):
@@ -405,7 +409,7 @@ def _grid_bin(q: torch.Tensor, lo: torch.Tensor, inv_h: torch.Tensor,
 
 
 def locate_device_layered(dloc: LayeredDeviceLocator, q: torch.Tensor,
-                          tol: float = 1e-6):
+                          tol: float = LOCATE_TOL):
     """Point location on the layered locator for a batch q (n, 3):
     (cell id or -1 (n,), barycentric (n, 4)) — the contract of
     locate_device."""
@@ -440,7 +444,8 @@ def locate_device_layered(dloc: LayeredDeviceLocator, q: torch.Tensor,
     return cell, bar[ar, first]
 
 
-def locate_device(dloc: DeviceLocator, q: torch.Tensor, tol: float = 1e-6):
+def locate_device(dloc: DeviceLocator, q: torch.Tensor,
+                  tol: float = LOCATE_TOL):
     """Point location on the general grid locator for a batch q
     (n, dim): (cell id or -1 (n,), barycentric (n, dim+1))."""
     n = q.shape[0]
@@ -457,7 +462,7 @@ def locate_device(dloc: DeviceLocator, q: torch.Tensor, tol: float = 1e-6):
     return cell, bar[ar, first]
 
 
-def locate_any(dloc, q: torch.Tensor, tol: float = 1e-6):
+def locate_any(dloc, q: torch.Tensor, tol: float = LOCATE_TOL):
     """Locate on whichever locator type ``dloc`` is."""
     if isinstance(dloc, LayeredDeviceLocator):
         return locate_device_layered(dloc, q, tol)

@@ -92,7 +92,7 @@ def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
     global _LIB
     if _LIB is None:
-        lib, = nvcc.build("plane_gs")
+        lib = nvcc.kernel("plane_gs")
         P = ctypes.POINTER(_Params)
         lib.plane_gs.restype = ctypes.c_int
         lib.plane_gs.argtypes = [ctypes.c_void_p, ctypes.c_void_p,

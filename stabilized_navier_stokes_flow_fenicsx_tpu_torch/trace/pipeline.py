@@ -14,10 +14,11 @@ Replicates reference NavierStokes/streamtrace.py:556-664
      contour — their (y, z) are the predicted outlet profile (:536-553)
 
 The reference farms this over MPI ranks; here both traces are batched
-device programs (trace/streamtrace.py) on the given torch device.  Each
-step is a span (utils/profiling.py): ``contour``, ``locator``, ``rk45``
-(once per direction), ``alpha_shape``, ``outlet_mask``; the ``stats``
-walls are the lengths of ``locator`` and of the two ``rk45`` spans.
+device programs (trace/streamtrace.py) on the given torch device: on the
+card one K3 launch per direction (per ``SEED_CHUNK`` seeds).  Each step
+is a span (utils/profiling.py): ``contour``, ``locator``, ``rk45`` (once
+per direction), ``alpha_shape``, ``outlet_mask``; the ``stats`` walls
+are the lengths of ``locator`` and of the two ``rk45`` spans.
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ from ..utils.profiling import read, span
 from .alpha_shape import alpha_shape_polygon, expand_bbox
 from .streamtrace import TraceConfigDevice, trace_particles
 
-# seeds per segment call of the compacted tracer: the product's 200 x 200
-# reverse grid (40,000 seeds) traces as ONE batch; larger grids are cut
-# into batches of this width, which bounds the locator's gather
-# intermediates (~K2 * 7 * 8 bytes per lane and velocity eval)
+# seeds per K3 launch (per segment call of the plain compacted tracer):
+# the product's 200 x 200 reverse grid (40,000 seeds) traces as ONE
+# batch; larger grids are cut into batches of this width, which bounds
+# the plain version's gather intermediates (~K2 * 7 * 8 bytes per lane
+# and velocity eval)
 SEED_CHUNK = 1 << 16
 
 
@@ -52,8 +54,10 @@ class StreamtraceResult:
     outlet_points: np.ndarray         # (m, 2) predicted outlet profile (y, z)
     inner_contour: np.ndarray         # (k, 2) inlet inner contour (y, z)
     stats: dict = dataclasses.field(default_factory=dict)
-    # seeds, dispatches, executed lane_steps (masked lanes included),
-    # seed_steps (RK steps summed over seeds), per-phase wall seconds
+    # seeds, dispatches (K3 launches or segment calls), executed
+    # lane_steps (the plain version's masked lanes included; under K3
+    # equal to seed_steps), seed_steps (RK steps summed over seeds),
+    # per-phase wall seconds
 
 
 def trace_config(tc: TraceConfig, reverse: bool = False

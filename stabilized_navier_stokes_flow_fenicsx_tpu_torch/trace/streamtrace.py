@@ -29,18 +29,36 @@ span ``rk45.round``; rounds and segment calls are counted
 FSAL carry: DP45's 7th stage IS the next step's first stage, and a
 rejected step restarts from the same x, so stage 0 is never re-evaluated
 — 6 velocity evals per step instead of 7.
+
+On the card with the layered locator, ``trace_particles`` runs K3
+instead (``trace_k3``, ``csrc/streamtrace.cu``): one hand-written CUDA
+kernel launch per ``chunk`` of seeds, one thread per seed, each lane
+integrating to its end with the per-lane semantics of ``trace_segment``
+(it replaces no TPU kernel; the source says what bounds it and what its
+design does about that).  There is no fallback from the kernel: on CUDA
+tensors with a ``LayeredDeviceLocator`` the trace launches K3 or raises.
+``trace_particles_plain`` (``trace_segment`` under the compacted rounds)
+is its twin, and runs for CPU tensors and for the general
+``DeviceLocator``.  The kernel is built at first use with ``nvcc`` into
+``build/torch_kernels/`` (utils/nvcc.py), and takes the tableau, the
+bisection count, the step controller's constants and the locator's
+tolerance from this module and fem/interpolate.py.  Each launch adds one
+to the tracer's counter ``k3_launch`` under its shape (lanes, Lp, K2,
+dtype, direction); ``LAUNCHES`` reads it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..fem.interpolate import locate_any
-from ..utils.profiling import count, read, span
+from ..fem.interpolate import LOCATE_TOL, LayeredDeviceLocator, locate_any
+from ..utils import nvcc
+from ..utils.profiling import count, counts, read, span
 
 # Dormand-Prince RK45 tableau
 _A = np.zeros((7, 7))
@@ -55,6 +73,13 @@ _B4 = np.array([5179 / 57600, 0, 7571 / 16695, 393 / 640, -92097 / 339200,
                 187 / 2100, 1 / 40])
 # event bisection iterations on the Hermite interpolant (frac to 2^-16)
 _N_BISECT = 16
+# the step controller: factor _SAFETY * err ** _EXPONENT clamped to
+# [_FAC_MIN, _FAC_MAX], the step to [_DT_MIN, max_step]; a lane finishes
+# at t >= t_max - _T_EPS
+_SAFETY, _EXPONENT = 0.9, -0.2
+_FAC_MIN, _FAC_MAX = 0.2, 5.0
+_DT_MIN = 1e-6
+_T_EPS = 1e-12
 # masked RK iterations per segment of trace_particles (one host read each)
 SEG_STEPS = 128
 
@@ -210,9 +235,9 @@ def trace_segment(cfg: TraceConfigDevice, dloc, u_cell: torch.Tensor,
         # hit x_out is the Hermite endpoint, not x_new — but that lane is
         # done and its carry is never read again.)
         v_out = torch.where(accept[:, None], v6, v)
-        fac = (0.9 * err ** -0.2).clamp(0.2, 5.0)
-        dt_new = (dt * fac).clamp(1e-6, cfg.max_step)
-        finished = speed_stop | hit | (t_new >= cfg.t_max - 1e-12)
+        fac = (_SAFETY * err ** _EXPONENT).clamp(_FAC_MIN, _FAC_MAX)
+        dt_new = (dt * fac).clamp(_DT_MIN, cfg.max_step)
+        finished = speed_stop | hit | (t_new >= cfg.t_max - _T_EPS)
         done_new = done | (accept & finished) | speed_stop
         # lanes whose condition is false keep their state
         x = torch.where(active[:, None], x_out, x)
@@ -279,6 +304,29 @@ def _compact_state(st: FullTraceState):
     return packed, (~st.done).sum()
 
 
+def _trace_compacted(cfg: TraceConfigDevice, dloc, u_cell: torch.Tensor,
+                     x0: torch.Tensor, chunk: int,
+                     seg_steps: int) -> Tuple[FullTraceState, int]:
+    """The compacted rounds of ``trace_particles_plain``: (the final
+    whole-grid state (lanes permuted; ``seed_id`` maps them back), the
+    segment calls made)."""
+    st = _init_full_state(x0, cfg.max_step)
+    calls = 0
+    for _ in range(-(-int(cfg.max_steps) // seg_steps)):
+        with span("rk45.round"):
+            st, n_active = _compact_state(st)
+            na = read(n_active, int)      # the ONLY per-round host read
+            if na == 0:
+                break
+            count("trace_rounds")
+            for offset in range(0, na, chunk):
+                st = _run_chunk(cfg, dloc, u_cell, st,
+                                min(chunk, na - offset), offset, seg_steps)
+                count("trace_dispatches")
+                calls += 1
+    return st, calls
+
+
 def _run_chunk(cfg: TraceConfigDevice, dloc, u_cell: torch.Tensor,
                st: FullTraceState, chunk: int, offset: int,
                seg_steps: int) -> FullTraceState:
@@ -309,30 +357,89 @@ def trace_particles(
 
     reverse=True negates the field (velfunc_reverese, :159-173).
 
+    With a ``LayeredDeviceLocator`` on the card the seeds run through K3
+    (``trace_k3``), ``chunk`` lanes a launch (all of them for chunk=0),
+    each launch the span ``rk45.round`` and one ``trace_rounds`` and
+    ``trace_dispatches``; ``seg_steps`` is not used.  Otherwise (CPU
+    tensors, the general locator) through ``trace_particles_plain``.
+
+    stats (optional dict) accumulates: seeds, dispatches (K3 launches or
+    segment calls), lane_steps (lane-iterations executed: the plain
+    version's masked ones included; under K3, which runs none, equal to
+    seed_steps) and seed_steps (accepted + rejected RK steps summed over
+    seeds).
+    """
+    if isinstance(dloc, LayeredDeviceLocator) and dloc.cells.is_cuda:
+        return _trace_particles_k3(cfg, dloc, u_nodes, seeds, reverse,
+                                   chunk, stats)
+    return trace_particles_plain(cfg, dloc, u_nodes, seeds, reverse, chunk,
+                                 seg_steps, stats)
+
+
+def _stats_keys(stats: Optional[dict]) -> None:
+    if stats is not None:
+        for k in ("seeds", "dispatches", "lane_steps", "seed_steps"):
+            stats.setdefault(k, 0)
+
+
+def _trace_particles_k3(cfg: TraceConfigDevice, dloc: LayeredDeviceLocator,
+                        u_nodes, seeds, reverse: bool, chunk: int,
+                        stats: Optional[dict]) -> torch.Tensor:
+    """``trace_particles`` through K3."""
+    if reverse:
+        cfg = dataclasses.replace(cfg, sign=-1.0)
+    u_cell = pack_u_cells(dloc, torch.as_tensor(u_nodes,
+                                                device=dloc.cells.device))
+    x0 = torch.as_tensor(seeds, dtype=u_cell.dtype, device=u_cell.device)
+    _stats_keys(stats)
+    n = x0.shape[0]
+    width = chunk or max(n, 1)
+    ends, steps = [], []
+    for offset in range(0, n, width):
+        with span("rk45.round"):
+            count("trace_rounds")
+            count("trace_dispatches")
+            x, st, _ = trace_k3(cfg, dloc, u_cell, x0[offset:offset + width])
+        ends.append(x)
+        steps.append(st)
+    if stats is not None:
+        seed_steps = read(torch.cat(steps).sum(), int) if n else 0
+        stats["seeds"] += n
+        stats["dispatches"] += len(ends)
+        stats["seed_steps"] += seed_steps
+        stats["lane_steps"] += seed_steps
+    return torch.cat(ends) if n else torch.empty_like(x0)
+
+
+def trace_particles_plain(
+    cfg: TraceConfigDevice,
+    dloc,
+    u_nodes: torch.Tensor,
+    seeds,                          # (n, 3)
+    reverse: bool = False,
+    chunk: int = 0,
+    seg_steps: int = SEG_STEPS,
+    stats: Optional[dict] = None,
+) -> torch.Tensor:
+    """The plain version of ``trace_particles`` (K3's twin), on any
+    device and locator: masked ``trace_segment`` iterations.
+
     chunk > 0 enables the COMPACTED tracer (the product path for big seed
     grids): between seg_steps segments the not-done seeds are packed to
     the front by a stable partition, and only they are traced, ``chunk``
     lanes per segment call at most (the last call of a round is
     narrower; nothing is padded).  Finished lanes and wall-stalled
     stragglers then stop costing work after their segment.
-
-    stats (optional dict) accumulates: seeds, dispatches (segment calls),
-    lane_steps (lanes x iterations the segments executed, masked lanes
-    included) and seed_steps (accepted + rejected RK steps summed over
-    seeds).
     """
     if reverse:
         cfg = dataclasses.replace(cfg, sign=-1.0)
     u_nodes = torch.as_tensor(u_nodes, device=dloc.cells.device)
     u_cell = pack_u_cells(dloc, u_nodes)
-    if stats is not None:
-        for k in ("seeds", "dispatches", "lane_steps", "seed_steps"):
-            stats.setdefault(k, 0)
-    max_rounds = -(-int(cfg.max_steps) // seg_steps)
+    _stats_keys(stats)
     if not chunk:
         state = init_trace_state(seeds, cfg, dloc, u_cell)
         n = state.x.shape[0]
-        for _ in range(max_rounds):
+        for _ in range(-(-int(cfg.max_steps) // seg_steps)):
             with span("rk45.round"):
                 count("trace_rounds")
                 count("trace_dispatches")
@@ -347,25 +454,181 @@ def trace_particles(
             stats["seed_steps"] += read(state.steps.sum(), int)
         return state.x
 
-    st = _init_full_state(
+    st, calls = _trace_compacted(
+        cfg, dloc, u_cell,
         torch.as_tensor(seeds, dtype=u_cell.dtype, device=u_cell.device),
-        cfg.max_step)
-    for _ in range(max_rounds):
-        with span("rk45.round"):
-            st, n_active = _compact_state(st)
-            na = read(n_active, int)      # the ONLY per-round host read
-            if na == 0:
-                break
-            count("trace_rounds")
-            for offset in range(0, na, chunk):
-                st = _run_chunk(cfg, dloc, u_cell, st,
-                                min(chunk, na - offset), offset, seg_steps)
-                count("trace_dispatches")
-                if stats is not None:
-                    stats["dispatches"] += 1
+        chunk, seg_steps)
     ends, seed_steps = _finalize_full_state(st)
     if stats is not None:
         stats["seeds"] += st.x.shape[0]
+        stats["dispatches"] += calls
         stats["seed_steps"] += read(seed_steps, int)
         stats["lane_steps"] += st.lane_steps
     return ends
+
+
+# ---- K3: the hand-written kernel -------------------------------------------
+
+COUNTER = "k3_launch"
+_reset_at: Dict = {}      # the counter at the last ``reset_launches``
+_DTYPE = {torch.float64: 0, torch.float32: 1}
+SMEM_LIMIT = 49152        # the planes' shared memory (no opt-in above it)
+_LIB: Optional[ctypes.CDLL] = None
+
+_D7 = ctypes.c_double * 7
+
+
+class _Params(ctypes.Structure):
+    """The kernel's ``Params``: the locator's tables, the packed field
+    and the trace's parameters."""
+    _fields_ = [("x_planes", ctypes.c_void_p), ("lo2", ctypes.c_void_p),
+                ("inv_h2", ctypes.c_void_p), ("tab2", ctypes.c_void_p),
+                ("prism_base", ctypes.c_void_p),
+                ("prism_geom", ctypes.c_void_p), ("u_cell", ctypes.c_void_p),
+                ("Lp", ctypes.c_int), ("nl", ctypes.c_int),
+                ("K2", ctypes.c_int), ("s0", ctypes.c_int),
+                ("s1", ctypes.c_int), ("n_bisect", ctypes.c_int),
+                ("max_steps", ctypes.c_longlong)] + [
+        (k, ctypes.c_double) for k in (
+            "t_max", "t_end", "max_step", "speed_eps", "x_stop",
+            "direction", "rtol", "atol", "sign", "tol", "safety",
+            "exponent", "fac_min", "fac_max", "dt_min")] + [
+        ("a", _D7 * 7), ("b5", _D7), ("b4", _D7)]
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source version) and load the kernel library."""
+    global _LIB
+    if _LIB is None:
+        lib = nvcc.kernel("streamtrace")
+        vp = ctypes.c_void_p
+        lib.streamtrace.restype = ctypes.c_int
+        lib.streamtrace.argtypes = [vp, vp, vp, vp, ctypes.c_int,
+                                    ctypes.c_int, vp,
+                                    ctypes.POINTER(_Params)]
+        lib.streamtrace_chase.restype = ctypes.c_int
+        lib.streamtrace_chase.argtypes = [vp, ctypes.c_longlong, vp, vp]
+        _LIB = lib
+    return _LIB
+
+
+def kernel_params(cfg: TraceConfigDevice, dloc: LayeredDeviceLocator,
+                  u_cell: torch.Tensor) -> _Params:
+    """The launch's ``Params``: the tables' addresses and shapes, and the
+    constants of ``trace_segment`` and the locator."""
+    return _Params(
+        dloc.x_planes.data_ptr(), dloc.lo2.data_ptr(),
+        dloc.inv_h2.data_ptr(), dloc.tab2.data_ptr(),
+        dloc.prism_base.data_ptr(), dloc.prism_geom.data_ptr(),
+        u_cell.data_ptr(), dloc.x_planes.shape[0], dloc.nl,
+        dloc.tab2.shape[1], dloc.shape2[0], dloc.shape2[1], _N_BISECT,
+        int(cfg.max_steps), cfg.t_max, cfg.t_max - _T_EPS, cfg.max_step,
+        cfg.speed_eps, cfg.x_stop, float(cfg.stop_direction), cfg.rtol,
+        cfg.atol, float(cfg.sign), LOCATE_TOL, _SAFETY, _EXPONENT,
+        _FAC_MIN, _FAC_MAX, _DT_MIN,
+        (_D7 * 7)(*(_D7(*row) for row in _A)), _D7(*_B5), _D7(*_B4))
+
+
+def _check_k3(dloc: LayeredDeviceLocator, u_cell: torch.Tensor,
+              seeds: torch.Tensor) -> None:
+    """Raise unless every tensor K3 reads is contiguous, on one CUDA
+    device, of one floating dtype K3 takes (int64 ``prism_base``), and
+    shaped as the kernel reads it."""
+    dtype, dev = seeds.dtype, seeds.device
+    if dtype not in _DTYPE:
+        raise ValueError(f"streamtrace: K3 takes float64 or float32 seeds, "
+                         f"got {dtype}")
+    named = [("seeds", seeds), ("u_cell", u_cell),
+             ("x_planes", dloc.x_planes), ("lo2", dloc.lo2),
+             ("inv_h2", dloc.inv_h2), ("tab2", dloc.tab2),
+             ("prism_geom", dloc.prism_geom),
+             ("prism_base", dloc.prism_base)]
+    for name, t in named:
+        want = torch.int64 if name == "prism_base" else dtype
+        if t.dtype != want or t.device != dev:
+            raise ValueError(f"streamtrace: {name} is {t.dtype} on "
+                             f"{t.device}, K3 needs {want} on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"streamtrace: {name} is not contiguous")
+    Lp = dloc.x_planes.shape[0]
+    if seeds.dim() != 2 or seeds.shape[1] != 3 \
+            or tuple(u_cell.shape[1:]) != (12,) \
+            or dloc.tab2.dim() != 3 or dloc.tab2.shape[2] != 7 \
+            or tuple(dloc.prism_geom.shape[1:]) != (36,) \
+            or dloc.nl != Lp - 1 \
+            or Lp * seeds.element_size() > SMEM_LIMIT:
+        raise ValueError(
+            f"streamtrace: K3 takes seeds (n, 3), u_cell (nc, 12), tab2 "
+            f"(n_bins, K2, 7), prism_geom (n, 36) and at most "
+            f"{SMEM_LIMIT // seeds.element_size()} planes; got "
+            f"{tuple(seeds.shape)}, {tuple(u_cell.shape)}, "
+            f"{tuple(dloc.tab2.shape)}, {tuple(dloc.prism_geom.shape)}, "
+            f"{Lp} planes")
+    if dev.type != "cuda":
+        raise ValueError(f"streamtrace: K3 runs on a CUDA card; the tensors "
+                         f"are on {dev}")
+
+
+def trace_k3(cfg: TraceConfigDevice, dloc: LayeredDeviceLocator,
+             u_cell: torch.Tensor, seeds: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3: one launch integrating every seed (n, 3) from a fresh state
+    (t = 0, dt = max_step) until it is done or has taken
+    ``cfg.max_steps`` steps, as ``trace_segment`` integrates a lane.
+    u_cell: ``pack_u_cells``'s rows, with ``cfg.sign`` the direction.
+    Returns (endpoints (n, 3), steps (n,) int64, done (n,) bool) in seed
+    order, on the seeds' stream, without a host read.  Raises on a
+    tensor K3 does not take (``_check_k3``) and on a failed launch."""
+    _check_k3(dloc, u_cell, seeds)
+    n = seeds.shape[0]
+    x = torch.empty_like(seeds)
+    steps = torch.zeros(n, dtype=torch.int64, device=seeds.device)
+    done = torch.zeros(n, dtype=torch.bool, device=seeds.device)
+    if n == 0:
+        return x, steps, done
+    fn = build().streamtrace
+    P = kernel_params(cfg, dloc, u_cell)
+    with torch.cuda.device(seeds.device):
+        err = fn(seeds.data_ptr(), x.data_ptr(), steps.data_ptr(),
+                 done.data_ptr(), n, _DTYPE[seeds.dtype],
+                 torch.cuda.current_stream().cuda_stream, ctypes.byref(P))
+    if err != 0:
+        raise RuntimeError(f"streamtrace: K3 launch failed (cudaError "
+                           f"{err})")
+    count(COUNTER, key=(n, dloc.x_planes.shape[0], dloc.tab2.shape[1],
+                        str(seeds.dtype).replace("torch.", ""),
+                        "reverse" if cfg.sign < 0 else "forward"))
+    return x, steps, done
+
+
+def chase(next_idx: torch.Tensor, n_loads: int) -> torch.Tensor:
+    """``streamtrace_chase``: one thread following ``n_loads`` dependent
+    loads through the int64 chain ``next_idx`` (a CUDA tensor); returns
+    the 0-d index it ends on.  Time it to read the latency of one load."""
+    if next_idx.dtype != torch.int64 or not next_idx.is_cuda \
+            or not next_idx.is_contiguous():
+        raise ValueError("streamtrace: chase takes a contiguous int64 CUDA "
+                         "tensor")
+    out = torch.empty((), dtype=torch.int64, device=next_idx.device)
+    with torch.cuda.device(next_idx.device):
+        err = build().streamtrace_chase(
+            next_idx.data_ptr(), int(n_loads), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"streamtrace: chase launch failed (cudaError "
+                           f"{err})")
+    return out
+
+
+def __getattr__(name: str):
+    """``LAUNCHES``: K3 launches since import or the last
+    ``reset_launches``."""
+    if name == "LAUNCHES":
+        return sum(counts(COUNTER, _reset_at).values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def reset_launches() -> None:
+    """Count the launches from now."""
+    _reset_at.clear()
+    _reset_at.update(counts(COUNTER))

@@ -10,8 +10,11 @@ loaded with ctypes; the callers set each function's argument types.
 
 ``build(*names)`` starts one ``nvcc`` per missing library, all at once,
 and waits for them; ``LOGS`` keeps each build's nvcc/ptxas output.
-``csrc=`` builds the sources of another directory (an earlier version
-of a kernel, for comparison) the same way.
+``kernel(name)`` is how the wrappers load their library: it builds all
+of ``KERNELS`` in one ``build`` call, so a checkout's first run compiles
+the package's hand kernels in parallel.  ``csrc=`` builds the sources of
+another directory (an earlier version of a kernel, for comparison) the
+same way.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LOGS: Dict[str, str] = {}          # nvcc/ptxas output by source name
+# the package's hand kernels: K1, K2, K3
+KERNELS = ("layered_spmv", "plane_gs", "streamtrace")
 _LIBS: Dict[str, ctypes.CDLL] = {}   # by library path
 
 
@@ -76,3 +81,10 @@ def build(*names: str, csrc: Optional[str] = None) -> List[ctypes.CDLL]:
     for n in todo:
         _LIBS[paths[n]] = ctypes.CDLL(paths[n])
     return [_LIBS[paths[n]] for n in names]
+
+
+def kernel(name: str) -> ctypes.CDLL:
+    """The library of the package's kernel ``name`` (one of
+    ``KERNELS``), building every kernel of ``KERNELS`` that is missing at
+    once."""
+    return build(*KERNELS)[KERNELS.index(name)]
