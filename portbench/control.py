@@ -9,10 +9,12 @@ Each seed is one run of the cell through ``run.run_cell`` (its warm-up
 case, then cases until the first that ends after ``--seconds``, judged
 as a benchmark run judges them), so that a control run reaches its
 ``correct`` by the code that decides a benchmark run's.  ``sound`` runs
-the program as the configuration states.  ``control`` runs the nearest
-precision below the configuration's float64: the program's own float32
-solve with refinement off (``dtype`` float32, ``refine`` off), and in
-the trace's place the reference tracer in float32.  One JSON line per
+the program as the configuration states.  ``control`` applies the
+``control_edit()`` of the driver that the cell's traffic names (for
+the channel's entries, ``harness/channel_entry.py``: the nearest
+precision below the configuration's float64, the program's own float32
+solve with refinement off, and in the trace's place the reference
+tracer in float32).  One JSON line per
 seed (``correct``, each number beside its limit, the cases) goes to
 standard output and to ``--out``.  The benchmark's own runs never run
 this.  Needs the card unless ``--device cpu``.
@@ -31,11 +33,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from portbench import run as bench_run  # noqa: E402
 
 
-def control_edit() -> dict:
-    """The control's keys for ``run_cell``."""
-    import torch
-
-    return {"dtype": "float32", "refine": "off", "trace_dtype": torch.float32}
+def control_edit(workload: str, bench=None, base: str = bench_run.BENCH
+                 ) -> dict:
+    """The control's keys for ``run_cell``: the cell's driver's."""
+    if bench is None:
+        bench = bench_run.load_json(os.path.join(bench_run.ROOT,
+                                                 "BENCHMARK.json"))
+    traffic = bench_run.cell_files(bench, workload, base)[2]
+    return bench_run.load_module("drivers", traffic["entry"],
+                                 base).control_edit()
 
 
 def readings(workload: str, mode: str, seeds, seconds: float, device,
@@ -46,7 +52,8 @@ def readings(workload: str, mode: str, seeds, seconds: float, device,
                                 "--seconds", str(seconds), "--trace", "0"])
         result = bench_run.run_cell(
             args, device=device, bench=bench, base=base,
-            control=control_edit() if mode == "control" else None)
+            control=(control_edit(workload, bench, base)
+                     if mode == "control" else None))
         row = dict(workload=workload, mode=mode, seed=seed,
                    correct=result["correct"], checks=result["checks"],
                    attempted=result["attempted"], failed=result["failed"])

@@ -3,8 +3,9 @@
 A frozen copy of the port's ``utils/testimg.py::make_annulus_image``
 (circle only), so that the benchmark's inputs stay put when the program
 changes.  ``SHAPES`` names what it draws; a traffic file that asks for
-another shape is refused (a square or a plus needs its drawing here and
-its outlet test in ``judge.py``).  ``inner_circle`` gives the ring's
+another shape is refused (a square or a plus needs its drawing in a new
+module and its outlet test in the judge of the entry that draws it,
+``drivers/<entry>.py``).  ``inner_circle`` gives the ring's
 inner edge in the mesh's (y, z) coordinates, which the reference uses to
 judge the outlet points; ``region_areas`` the areas the image's pixels
 give the inlets and the splitter, against which the served meshes are

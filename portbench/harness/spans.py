@@ -42,15 +42,19 @@ WRAPPED: Dict[str, List[Tuple[str, str]]] = {
     "fgmres": [("solve.driver", "fgmres"), ("solve.newton", "fgmres")],
     "metadata": [("apps.inlet_batch", "write_run_metadata")],
     "checkpoint_write": [("apps.inlet_batch", "save_navier_stokes_solution")],
-    "checkpoint_read": [("apps.inlet_batch", "read_xdmf_function")],
-    "seed_profiles": [("apps.inlet_batch", "solve_inlet_profiles")],
-    "trace": [("apps.inlet_batch", "for_and_rev_streamtrace")],
+    "checkpoint_read": [("apps.inlet_batch", "read_xdmf_function"),
+                        ("apps.streamtrace_cli", "read_xdmf_function")],
+    "seed_profiles": [("apps.inlet_batch", "solve_inlet_profiles"),
+                      ("apps.streamtrace_cli", "solve_inlet_profiles")],
+    "trace": [("apps.inlet_batch", "for_and_rev_streamtrace"),
+              ("apps.streamtrace_cli", "for_and_rev_streamtrace")],
     "contour": [("trace.pipeline", "update_contour")],
     "locator": [("trace.pipeline", "build_trace_locator")],
     "rk45": [("trace.pipeline", "trace_particles")],
     "alpha_shape": [("trace.pipeline", "alpha_shape_polygon")],
     "outlet_mask": [("trace.pipeline", "points_in_polygon")],
-    "figures": [("apps.inlet_batch", "save_trace_figures")],
+    "figures": [("apps.inlet_batch", "save_trace_figures"),
+                ("apps.streamtrace_cli", "save_trace_figures")],
 }
 CAPTURED = ("inlet_profiles", "seed_profiles")
 # the V-cycle: make_mg_pc is "mg_setup", the apply it returns "vcycle"

@@ -1,13 +1,19 @@
-"""The one case generator: a traffic file's parameters and a seed in, the
-stream of cases out.
+"""The channel's case generator: a traffic file's parameters and a seed
+in, the stream of cases out.  The channel's entries (``drivers/
+run_trace_save.py``, ``drivers/streamtrace_cli.py``) give it as their
+``cases``; an entry of another problem brings its own stream, check and
+judge in its driver.
 
-A traffic file (``traffic/<name>.json``) holds:
+A channel traffic file (``traffic/<name>.json``) holds:
 
 - ``entry``: the program's entry point that runs each case, the name of
   a driver ``drivers/<entry>.py`` (``run_trace_save``: the solve, the
   checkpoint round trip, the trace and the figures of
-  ``apps/inlet_batch.py``);
-- ``image``: ``shape`` (one of ``images.SHAPES``; any other is refused),
+  ``apps/inlet_batch.py``; ``streamtrace_cli``: the standalone trace of
+  a checkpoint solved at set-up);
+- ``image``: ``shape`` (one of ``images.SHAPES``; any other is refused:
+  another shape needs its drawing and its outlet test in the judge of
+  the entry that serves it),
   ``size`` (pixels) and either ``r_inner`` and ``r_gap`` (``r_outer =
   r_inner + r_gap``), one image for every case, or ``set``, a list of
   ``[r_inner, r_gap]`` pairs that the cases take in turn, in an order

@@ -4,19 +4,23 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-From the root of a checkout.  Set-up loads the port and runs one untimed
-case of the cell's own traffic (which builds the CUDA kernels in the
-checkout's ``build/torch_kernels/`` on a checkout's first run); then the
-window runs cases back to back through ``apps/inlet_batch.py::
-run_trace_save`` until the first end of a round of the traffic
-(``traffic.round_length``) after ``--seconds``.
+From the root of a checkout.  Everything that belongs to a program path
+is the driver's that the cell's traffic names (``drivers/<entry>.py``;
+its functions are listed in ``drivers/run_trace_save.py``): the check
+that the program runs as configured, the case stream, each case's
+inputs, the call, its record, and the judge.  Set-up loads the port and
+runs one untimed case of the stream (which builds the CUDA kernels in
+the checkout's ``build/torch_kernels/`` on a checkout's first run);
+then the window runs cases back to back until the first end of a round
+of the traffic (the driver's ``round_length``) after ``--seconds``.
 With ``--trace 1`` one more case runs under ``torch.profiler`` and the
-per-layer metrics are reported instead of the end-to-end ones.  After the
-window the plain reference judges every case of it.  The last line of
-standard output is the result; each number judged is printed beside its
-limit as the last lines of standard error.  Exits nonzero, printing no
-result, without a CUDA card, when a module of JAX or of the JAX package
-is loaded, or when the files of the program are missing.
+per-layer metrics are reported instead of the end-to-end ones.  After
+the window the driver's judge compares every case of it with the plain
+reference.  The last line of standard output is the result; each number
+judged is printed beside its limit as the last lines of standard error.
+Exits nonzero, printing no result, without a CUDA card, when a module of
+JAX or of the JAX package is loaded, or when the files of the program
+are missing.
 """
 
 from __future__ import annotations
@@ -36,8 +40,6 @@ import sys  # noqa: E402
 import tempfile  # noqa: E402
 from typing import Optional  # noqa: E402
 
-import numpy as np  # noqa: E402
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(ROOT, "portbench")
 FORBIDDEN = ("jax", "jaxlib", "flax", "stabilized_navier_stokes_flow_fenicsx_tpu")
@@ -52,9 +54,7 @@ for _var, _sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
 os.environ.setdefault("USE_FLAX", "0")
 sys.path.insert(0, ROOT)
 
-
-class RunError(RuntimeError):
-    """A run that cannot give a result."""
+from portbench.harness import RunError  # noqa: E402
 
 
 def load_json(path: str) -> dict:
@@ -93,6 +93,8 @@ def load_module(kind: str, name: str, base: str = BENCH):
         f"portbench_{kind}_" + name.replace(".", "_").replace("-", "_"),
         path)
     mod = importlib.util.module_from_spec(spec)
+    # registered, as an import would, so that its dataclasses resolve
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -118,53 +120,21 @@ def card_line() -> str:
         return f"nvidia-smi: {e}"
 
 
-def check_program(cfg: dict) -> None:
-    """The program runs as the configuration states, or the run stops.
-    (The solve's ``dtype`` and ``refine`` are the driver's to pass.)"""
-    import inspect
-
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch import config
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow import channel
-
-    s = config.DEFAULT.solver
-    t = config.DEFAULT.trace
-    want = {
-        "newton_rtol": (s.newton_rtol, cfg["snes"]["rtol"]),
-        "newton_atol": (s.newton_atol, cfg["snes"]["atol"]),
-        "coarse_lc": (inspect.signature(channel.solve_ns_flow)
-                      .parameters["coarse_lc"].default, cfg["coarse_lc"]),
-        "C_I": (config.DEFAULT.stab.C_I, cfg["C_I"]),
-        "x_outlet": (config.DEFAULT.channel.x_outlet,
-                     cfg["channel"]["x_outlet"]),
-    }
-    for k in ("t_max", "max_step", "speed_eps", "rtol", "atol", "max_steps",
-              "x_forward_stop", "x_reverse_stop", "x_forward_keep", "blurr"):
-        key = {"t_max": "t_span"}.get(k, k)
-        want[f"trace.{k}"] = (getattr(t, key), cfg["trace"][k])
-    off = {k: v for k, v in want.items() if v[0] != v[1]}
-    if off:
-        raise RunError(f"the program departs from the configuration: {off}")
-
-
 class Runner:
-    """Runs the cases of one stream through the driver of its traffic's
-    entry and keeps what the judge and the metrics need."""
+    """Runs the cases of one stream through a driver and keeps what the
+    judge and the metrics need."""
 
-    def __init__(self, cfg, traffic, seed, spans, device, workdir,
-                 base: str = BENCH):
-        from portbench.harness import traffic as gen
-
+    def __init__(self, cfg, traffic, seed, spans, device, workdir, driver):
         self.cfg, self.spans, self.device = cfg, spans, device
         self.workdir = workdir
-        self.stream = gen.cases(traffic, seed)
-        self.driver = load_module("drivers", traffic["entry"], base)
+        self.driver = driver
+        self.stream = driver.cases(traffic, seed)
         self.prev = None
 
     def run(self):
         """Run the next case; returns (record, output) or raises."""
         import torch
 
-        from portbench.harness import images
         from portbench.harness.spans import delta
 
         case = next(self.stream)
@@ -172,19 +142,17 @@ class Runner:
         # would with the upstream's one process per case; otherwise the
         # collector's timing moves the window's peak memory
         gc.collect()
-        img = images.make_annulus_image(
-            os.path.join(self.workdir, case.image_name), case.size,
-            case.r_inner, case.r_outer)
-        warm = self.prev if case.warm_start else None
+        prepared = self.driver.prepare(case, self.workdir)
         before = self.spans.snapshot()
         self.spans.captured.clear()
         sync = (torch.cuda.synchronize if torch.device(self.device).type
                 == "cuda" else (lambda: None))
         t0, n0 = time.perf_counter(), time.time_ns()
-        served = self.driver.run(case, img, self.cfg, self.device, warm)
+        served = self.driver.run(case, prepared, self.cfg, self.device,
+                                 self.prev)
         sync()
         wall = time.perf_counter() - t0
-        rec = dict(index=case.index, Re=case.Re, wall_s=wall,
+        rec = dict(index=case.index, wall_s=wall,
                    t_ns=(n0, time.time_ns()),
                    spans=delta(self.spans.snapshot(), before))
         fields, out, self.prev = self.driver.collect(
@@ -198,17 +166,16 @@ def run_cell(args, device=None, bench=None, base: str = BENCH,
     """One run; returns the result object (``correct`` and the rest).
     ``device=None`` asks for the card; ``bench`` and ``base`` (the folder
     of ``traffic/``, ``limits/``, ``metrics/`` and ``drivers/``) default
-    to the repository's.  ``control`` (``control.py``'s, never a
-    benchmark run's) replaces keys of the configuration and, under
-    ``trace_dtype``, puts the reference tracer in that type in the place
-    of the program's trace."""
+    to the repository's.  ``control`` (the driver's ``control_edit()``
+    as ``control.py`` passes it, never a benchmark run's) replaces keys
+    of the configuration and is handed to the driver's judge, which puts
+    the control in the place of the program's answers."""
     import torch
 
     if bench is None:
         bench = load_json(os.path.join(ROOT, "BENCHMARK.json"))
     cell, cfg, traffic, limits = cell_files(bench, args.workload, base)
-    control = dict(control or {})
-    trace_dtype = control.pop("trace_dtype", None)
+    driver = load_module("drivers", traffic["entry"], base)
     if device is None:
         if not torch.cuda.is_available() or \
                 torch.cuda.device_count() < cell["chips"]:
@@ -220,11 +187,10 @@ def run_cell(args, device=None, bench=None, base: str = BENCH,
               f"{len(os.sched_getaffinity(0))} allowed, torch "
               f"{torch.get_num_threads()} threads", file=sys.stderr,
               flush=True)
-    check_program(cfg)
-    cfg = {**cfg, **control}
+    driver.check_program(cfg)
+    cfg = {**cfg, **(control or {})}
 
-    from portbench.harness import judge, spans as spans_mod
-    from portbench.harness import traffic as gen
+    from portbench.harness import spans as spans_mod
 
     on_card = torch.device(device).type == "cuda"
     here = os.getcwd()
@@ -234,16 +200,17 @@ def run_cell(args, device=None, bench=None, base: str = BENCH,
     spans = spans_mod.Spans().install()
     try:
         runner = Runner(cfg, traffic, args.seed, spans, device, workdir,
-                        base)
+                        driver)
         rec0, _ = runner.run()                          # the warm-up case
         setup_s = time.perf_counter() - T_START
         print(f"set-up {setup_s:.3f} s (warm-up case {rec0['wall_s']:.3f} s)",
               file=sys.stderr, flush=True)
-        shutil.rmtree(rec0["folder"], ignore_errors=True)
+        if rec0.get("folder"):
+            shutil.rmtree(rec0["folder"], ignore_errors=True)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         records, outputs, failed = [], [], 0
-        rounds = gen.round_length(traffic)
+        rounds = driver.round_length(traffic)
         t0 = time.perf_counter()
         while True:
             try:
@@ -271,18 +238,14 @@ def run_cell(args, device=None, bench=None, base: str = BENCH,
             torch.cuda.empty_cache()
         t_judge = time.perf_counter()
         per_case: list = []
-        numbers = judge.judge(outputs, cfg, limits, gen.judge_rng(args.seed),
-                              device, trace_dtype, per_case=per_case)
+        numbers = driver.judge(outputs, cfg, limits,
+                               driver.judge_rng(args.seed), device,
+                               control or None, per_case)
         print(f"judged {len(outputs)} cases in "
               f"{time.perf_counter() - t_judge:.1f} s", file=sys.stderr,
               flush=True)
         for r, j in zip([r for r in records if r is not None], per_case):
-            fine = [f"{row[0]:.3g}" for row in r["history"].get("fine_ns",
-                                                                [])]
-            print(f"case {r['index']} Re {r['Re']}: {r['wall_s']:.3f} s, "
-                  f"converged {r['converged']}, fine Newton |F| {fine}, "
-                  + ", ".join(f"{k} {v:.4g}" for k, v in j.items()),
-                  file=sys.stderr, flush=True)
+            print(driver.describe(r, j), file=sys.stderr, flush=True)
     finally:
         spans.uninstall()
         os.chdir(here)
@@ -357,7 +320,8 @@ def profiled_case(runner, spans, on_card: bool):
     print(f"profiled case {rec['wall_s']:.3f} s, reduced in "
           f"{time.perf_counter() - t0:.1f} s; device busy {p.busy_s:.3f} s",
           file=sys.stderr, flush=True)
-    shutil.rmtree(rec["folder"], ignore_errors=True)
+    if rec.get("folder"):
+        shutil.rmtree(rec["folder"], ignore_errors=True)
     return p
 
 

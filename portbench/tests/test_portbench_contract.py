@@ -51,21 +51,33 @@ def test_keys_and_names():
     assert runs * (b["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
 
 
+ENTRY = ("check_program", "cases", "round_length", "judge_rng", "prepare",
+         "run", "collect", "judge", "describe", "control_edit")
+CHANNEL = ("run_trace_save", "streamtrace_cli")
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in load()["workloads"]])
 def test_cell_resolves(cell):
+    """Each cell's files hold what its driver reads; the channel's
+    configuration and the channel's entries keep the channel's."""
     b = load()
     w, cfg, traffic, limits = bench_run.cell_files(b, cell)
     conf = {c["name"]: c for c in b["configs"]}[w["config"]]
     assert cfg["name"] == conf["name"] and conf["reduced"] == cfg["reduced"]
     assert set(cfg["reduced"]) <= set(cfg)
-    assert cfg["dtype"] == "float64" and cfg["refine"] == "auto"
-    assert cfg["snes"]["rtol"] == cfg["snes"]["atol"] == 1e-8
-    assert {"residual", "trace_end_err", "geometry_err", "reverse_sample",
-            "outlet_band"} <= set(limits)
-    assert {"entry", "image", "ratio", "reynolds",
-            "warm_start"} <= set(traffic)
     driver = bench_run.load_module("drivers", traffic["entry"])
-    assert callable(driver.run) and callable(driver.collect)
+    for f in ENTRY:
+        assert callable(getattr(driver, f)), f
+    assert set(driver.LIMIT_KEYS) <= set(limits)
+    assert set(driver.TRAFFIC_KEYS) <= set(traffic)
+    if traffic["entry"] in CHANNEL:
+        assert cfg["dtype"] == "float64" and cfg["refine"] == "auto"
+        assert cfg["snes"]["rtol"] == cfg["snes"]["atol"] == 1e-8
+        assert {"residual", "trace_end_err", "geometry_err",
+                "reverse_sample", "outlet_band"} <= set(limits)
+        assert {"entry", "image", "ratio", "reynolds",
+                "warm_start"} <= set(traffic)
+        driver.check_program(cfg)
     for m in bench_run.metrics_of(b, cell, "per_layer"):
         assert callable(bench_run.load_metric(m["name"]).read)
 

@@ -1,9 +1,10 @@
 """``correct`` at a size a CPU test holds (the tiny cells: lc 0.12, a
-16 x 16 reverse grid): a sound run is correct; the control (the
-program's float32 solve without refinement, the reference tracer in
-float32) comes out not correct, failing the residual and the trace;
-and a run with the timed path broken underneath comes out not correct,
-once for each fault a cell can have.
+16 x 16 reverse grid; the retrace's CLI keeps its 50 x 50): a sound run
+is correct; the control (the program's float32 solve without
+refinement, the reference tracer in float32) comes out not correct,
+failing the residual and the trace; and a run with the timed path
+broken underneath comes out not correct, once for each fault a cell can
+have.
 Each run takes about a minute on the CPU."""
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ def _run(cell, seed=3_000_000_001):
                               base=DATA)
 
 
-@pytest.mark.parametrize("cell", ["tiny.images", "tiny.sweep"])
+@pytest.mark.parametrize("cell", ["tiny.images", "tiny.sweep",
+                                  "tiny.retrace"])
 def test_control_fails_sound_passes(cell):
     lim = _limits(cell)
     sound, = control.readings(cell, "sound", [11], 0, "cpu",
@@ -45,6 +47,21 @@ def test_control_fails_sound_passes(cell):
     for k in ("residual", "trace_end_err"):
         assert (sound["checks"][k]["value"] <= lim[k]
                 < ctl["checks"][k]["value"]), k
+
+
+def _checkpoint_altered(monkeypatch):
+    """The retrace's CLI reads back a velocity with a cross flow added."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import (
+        streamtrace_cli)
+
+    read = streamtrace_cli.read_xdmf_function
+
+    def altered(*args, **kw):
+        mesh, u = read(*args, **kw)
+        u = u.copy()
+        u[:, 1] += 1e-3
+        return mesh, u
+    monkeypatch.setattr(streamtrace_cli, "read_xdmf_function", altered)
 
 
 def _state_unchanged(monkeypatch):
@@ -123,4 +140,21 @@ def test_fault_makes_run_not_correct(fault, monkeypatch):
     if FAULTS[fault] is not None:
         FAULTS[fault](monkeypatch)
     result = _run("tiny.images")
+    assert result["correct"] is (fault == "none"), result["checks"]
+
+
+RETRACE_FAULTS = {"none": None, "state_unchanged": _state_unchanged,
+                  "answer_altered": _answer_altered,
+                  "half_left_out": _half_left_out,
+                  "checkpoint_altered": _checkpoint_altered}
+
+
+@pytest.mark.parametrize("fault", list(RETRACE_FAULTS))
+def test_retrace_fault_makes_run_not_correct(fault, monkeypatch):
+    """The retrace cell: the set-up solve left at its start, a reverse
+    endpoint altered, half of the reverse seeds left untraced, or the
+    checkpoint read back altered, each in the CLI's path."""
+    if RETRACE_FAULTS[fault] is not None:
+        RETRACE_FAULTS[fault](monkeypatch)
+    result = _run("tiny.retrace")
     assert result["correct"] is (fault == "none"), result["checks"]
