@@ -23,11 +23,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..assemble.assembly import assembler_for_mixed
+from ..assemble.assembly import ASM_CHUNK, assembler_for_mixed
 from ..config import SolverConfig
 from ..fem.bc import DirichletBC, bc_mask, bc_vector, combine_bcs
 from ..fem.space import make_mixed_space
-from ..flow.forces import reaction_force, traction_force_3d
+from ..flow.forces import (
+    facet_owners, reaction_force, reaction_from_residual, traction_force_3d)
 from ..forms.navier_stokes import make_ns_sups_kernel
 from ..forms.stokes import make_stokes_kernel
 from ..mesh.core import SimplexMesh, mark_boundary_facets
@@ -35,11 +36,27 @@ from ..mesh.extrude import extrude_tri_mesh
 from ..mesh.sizefield import (
     merge_meshes, structured_annulus, triangulate_sizefield)
 from ..solve.newton_host import linear_host_lu, newton_host_lu
+from ..utils.profiling import count, read, span
 
 L, W = 2.2, 0.41
 CX, CY, R = 0.5, 0.2, 0.05
+UM = 0.45                          # inflow peak (:103-106)
 NU = 1e-3
 UC, LC_REF = 0.2, 0.1 * 0.41
+# the layered solve's viscosity ladder from rest, and each rung's Newton
+# and FGMRES settings (the last rung runs to NEWTON_ATOL_LAST)
+NU_LADDER = (1e-1, 1e-2, 3e-3, NU)
+NEWTON_RTOL, NEWTON_ATOL, NEWTON_ATOL_LAST = 1e-8, 1e-9, 1e-10
+NEWTON_MAX_IT = 30
+KSP_RESTART, KSP_MAX_RESTARTS = 50, 40
+# cells one call of the SoA Jacobian or residual takes on the layered
+# route, at most: four times the channel's ASM_CHUNK, or the whole mesh
+# where it is smaller (a plan pads its cells to whole chunks).  At scale
+# 0.25 (1.49M tets, Lp 48) the channel's chunk made ~23 calls of ~1,800
+# small launches per Jacobian, and the card sat idle on their dispatch
+# (~2 s a Jacobian, 85-88% of a case idle); the larger chunk holds
+# ~0.7 GiB more at the peak.
+ASM_CHUNK_CELLS = 4 * ASM_CHUNK
 
 
 def dfg3d_mesh(scale: float = 1.0, cyl_factor: float = 1.0,
@@ -126,7 +143,7 @@ def _pillar_bcs(mesh: SimplexMesh, Wsp):
 
     iv = np.zeros((len(inlet), 3))
     y, z = mesh.points[inlet, 1], mesh.points[inlet, 2]
-    iv[:, 0] = (4 * y * (W - y) / W**2) * (4 * z * (W - z) / W**2) * 0.45
+    iv[:, 0] = (4 * y * (W - y) / W**2) * (4 * z * (W - z) / W**2) * UM
     bc = combine_bcs([
         DirichletBC(vdofs(inlet), iv.ravel()),
         DirichletBC(vdofs(walls), np.zeros(3 * len(walls))),
@@ -141,31 +158,127 @@ def _coefficients(F) -> tuple:
             float(2 * F[1] / (UC**2 * LC_REF)))
 
 
-def _fine_setup(scale, cyl_factor, near_growth, mg_levels, device):
-    """The layered problem of ``solve_dfg3d_fine``: (mesh, space, layered
-    pattern, mask, g, multigrid hierarchy, obstacle nodes), tensors in
-    float64 on ``device`` (the card when None)."""
+@dataclasses.dataclass
+class DFG3DProblem:
+    """The layered problem of DFG 3D-1Z, built once by ``setup_dfg3d``
+    and solved from rest by ``solve_dfg3d_from_rest`` as often as asked.
+    Tensors in ``dtype`` on ``device`` (the hierarchy's values take the
+    pc's own type)."""
+
+    mesh: SimplexMesh
+    space: object                # fem.space.MixedVelocityPressureSpace
+    lp: object                   # assemble.layered.LayeredPattern
+    mask: torch.Tensor
+    g: torch.Tensor
+    hier: object                 # solve.mg.build_mg_hierarchy's result
+    obst: np.ndarray             # pillar nodes (marker 5)
+    obst_dofs: torch.Tensor      # (3, n_obst) their velocity dofs
+    obst_owners: np.ndarray      # the owner cell of each pillar facet
+
+
+def setup_dfg3d(scale: float = 0.5, cyl_factor: float = 1.0,
+                near_growth: float = 0.15, mg_levels: int = 3,
+                dtype: Optional[torch.dtype] = None,
+                device=None) -> DFG3DProblem:
+    """The problem of ``solve_dfg3d_fine``: mesh, mixed space, layered
+    pattern, pillar BCs, mask, g and the multigrid hierarchy, in
+    ``dtype`` (float64 when None) on ``device`` (the card when None);
+    one ``dfg3d.setup`` span around ``mesh``, ``build_layered`` and
+    ``mg_hierarchy``."""
     from ..assemble.layered import build_layered
     from ..config import default_device, default_dtype
     from ..solve.mg import build_mg_hierarchy
 
     device = default_device() if device is None else torch.device(device)
-    dtype = default_dtype()
-    mesh = dfg3d_mesh(scale, cyl_factor=cyl_factor,
-                      near_growth=near_growth)
-    Wsp = make_mixed_space(mesh, 1, 1)
-    np2, Lp, _used = mesh.layered
-    lp = build_layered(Wsp, np2, Lp, dtype, device)
-    bc, obst = _pillar_bcs(mesh, Wsp)
-    mask_np = bc_mask(Wsp.ndofs, bc)
-    mask = torch.as_tensor(mask_np, dtype=dtype, device=device)
-    g = torch.as_tensor(bc_vector(Wsp.ndofs, bc), dtype=dtype,
-                        device=device)
-    hier = build_mg_hierarchy(
-        lp.rows2d, lp.cols2d, lp.n2d, lp.n_planes,
-        mask_np.astype(np.float32), lp.bs, n_levels=mg_levels,
-        device=device)
-    return mesh, Wsp, lp, mask, g, hier, obst
+    dtype = default_dtype() if dtype is None else dtype
+    with span("dfg3d.setup"):
+        with span("mesh"):
+            mesh = dfg3d_mesh(scale, cyl_factor=cyl_factor,
+                              near_growth=near_growth)
+        Wsp = make_mixed_space(mesh, 1, 1)
+        np2, Lp, _used = mesh.layered
+        lp = build_layered(Wsp, np2, Lp, dtype, device,
+                           chunk_cells=min(ASM_CHUNK_CELLS, mesh.n_cells))
+        bc, obst = _pillar_bcs(mesh, Wsp)
+        mask_np = bc_mask(Wsp.ndofs, bc)
+        mask = torch.as_tensor(mask_np, dtype=dtype, device=device)
+        g = torch.as_tensor(bc_vector(Wsp.ndofs, bc), dtype=dtype,
+                            device=device)
+        hier = build_mg_hierarchy(
+            lp.rows2d, lp.cols2d, lp.n2d, lp.n_planes,
+            mask_np.astype(np.float32), lp.bs, n_levels=mg_levels,
+            device=device)
+        obst_dofs = torch.as_tensor(
+            np.stack([Wsp.velocity_dof(obst, c) for c in range(3)]),
+            dtype=torch.int64, device=device)
+        owners = facet_owners(mesh, mesh.facets_with_marker(5))
+    return DFG3DProblem(mesh, Wsp, lp, mask, g, hier, obst, obst_dofs,
+                        owners)
+
+
+def _fine_setup(scale, cyl_factor, near_growth, mg_levels, device):
+    """``setup_dfg3d``'s float64 problem as the tuple (mesh, space,
+    layered pattern, mask, g, multigrid hierarchy, obstacle nodes)."""
+    p = setup_dfg3d(scale, cyl_factor, near_growth, mg_levels,
+                    device=device)
+    return p.mesh, p.space, p.lp, p.mask, p.g, p.hier, p.obst
+
+
+def solve_dfg3d_from_rest(prob: DFG3DProblem, ladder=NU_LADDER,
+                          ksp_rtol: float = 1e-5,
+                          pc: str = "mg_cheby6_bf16") -> DFG3DResult:
+    """One solve of ``prob`` from rest (x = g) through the viscosity
+    ``ladder``, then the forces, inside a ``case`` span: ``continuation``
+    > ``rung`` (one per viscosity; the counters ``rung_newton_steps``
+    and ``rung_krylov_its`` keyed by it), the one read of the served
+    state, ``forces`` > ``reaction``, ``traction``.
+
+    Each rung is ``solve_newton_layered`` in the problem's dtype (rtol
+    1e-8, atol 1e-9; the last rung to atol 1e-10), FGMRES (restart 50,
+    40 restarts) preconditioned by ``pc``, on the textbook SUPS residual
+    (see ``solve_dfg3d``'s transposed_stab note); ``converged`` is the
+    last rung's flag.  Cd and Cl come from the consistent reaction
+    functional of the RAW layered residual (no BC substitution, no
+    projection) at the last viscosity, summed on the device; the
+    reference's traction surface integral is kept for parity."""
+    from ..assemble.layered import residual_layered
+    from ..solve.driver import solve_newton_layered
+
+    lp = prob.lp
+    with span("case"):
+        with span("continuation"):
+            x = prob.g
+            rungs = []
+            for nu_step in ladder:
+                ns_k = make_ns_sups_kernel("tetrahedron", nu=nu_step,
+                                           transposed_stab=False)
+                last = nu_step == ladder[-1]
+                with span("rung") as s:
+                    nres = solve_newton_layered(
+                        ns_k, lp.n2d, lp.n_planes, lp.bs, lp.arrays,
+                        prob.mask, prob.g, x, lp.E, rtol=NEWTON_RTOL,
+                        atol=NEWTON_ATOL_LAST if last else NEWTON_ATOL,
+                        max_it=NEWTON_MAX_IT, ksp_rtol=ksp_rtol,
+                        ksp_restart=KSP_RESTART,
+                        ksp_max_restarts=KSP_MAX_RESTARTS, pc=pc,
+                        mg=prob.hier)
+                x = nres.x
+                ksp = [int(k) for k in nres.history[:, 2]]
+                count("rung_newton_steps", int(nres.iters), key=nu_step)
+                count("rung_krylov_its", sum(ksp), key=nu_step)
+                rungs.append((nu_step, int(nres.iters), ksp,
+                              float(nres.resnorm), s.seconds))
+        u, p = prob.space.split(read(x, torch.Tensor.cpu).double().numpy())
+        with span("forces"):
+            with span("reaction"):
+                r = residual_layered(ns_k, lp.n2d, lp.n_planes, lp.bs,
+                                     lp.arrays, x)
+                cd, cl = _coefficients(reaction_from_residual(
+                    r, prob.obst_dofs))
+            cd_s, cl_s = _coefficients(-traction_force_3d(
+                prob.mesh, u, p, 5, ladder[-1], owners=prob.obst_owners))
+    return DFG3DResult(prob.mesh, u, p, cd, cl, int(nres.iters),
+                       bool(nres.converged), cd_s, cl_s, rungs)
 
 
 def solve_dfg3d_fine(scale: float = 0.5,
@@ -177,7 +290,9 @@ def solve_dfg3d_fine(scale: float = 0.5,
                      device=None) -> DFG3DResult:
     """DFG 3D-1Z on the layered path, for meshes beyond the host LU's
     reach (validate the 3D lift at a mesh where the 0.15%-of-drag signal
-    clears the discretization noise floor).
+    clears the discretization noise floor): ``setup_dfg3d`` in float64,
+    then ``solve_dfg3d_from_rest``, with a progress line for the set-up,
+    each rung and the forces.
 
     The pillar mesh is a z-extrusion with plane-major node ids
     (mesh/extrude.py::extrude_tri_mesh), which is exactly the contract
@@ -192,58 +307,24 @@ def solve_dfg3d_fine(scale: float = 0.5,
     because its device lacks float64.  Here every viscosity rung is
     ``solve_newton_layered`` in float64 (rtol 1e-8, atol 1e-9), and the
     last rung runs to the refinement's own targets (rtol 1e-8, atol
-    1e-10) with no refinement pass; ``converged`` is that rung's flag.
-
-    Forces use the same consistent reaction functional, evaluated from
-    the RAW layered residual (no BC substitution, no projection), plus
-    the reference's traction surface integral for parity.
+    1e-10) with no refinement pass.
     """
-    from ..assemble.layered import residual_layered
-    from ..solve.driver import solve_newton_layered
-
     t_all = time.time()
-    mesh, Wsp, lp, mask, g, hier, obst = _fine_setup(
-        scale, cyl_factor, near_growth, mg_levels, device)
-    print(f"dfg3d_fine: {len(mesh.points)} nodes, {mesh.n_cells} tets, "
-          f"{Wsp.ndofs} dofs, n2d={lp.n2d} Lp={lp.n_planes} "
+    prob = setup_dfg3d(scale, cyl_factor, near_growth, mg_levels,
+                       device=device)
+    lp = prob.lp
+    print(f"dfg3d_fine: {len(prob.mesh.points)} nodes, "
+          f"{prob.mesh.n_cells} tets, {prob.space.ndofs} dofs, "
+          f"n2d={lp.n2d} Lp={lp.n_planes} "
           f"(setup {time.time() - t_all:.1f}s)", flush=True)
-
-    # nu continuation to the target viscosity (textbook SUPS residual,
-    # see solve_dfg3d's transposed_stab note)
-    x = g
-    rungs = []
-    for nu_step in (1e-1, 1e-2, 3e-3, NU):
-        ns_k = make_ns_sups_kernel("tetrahedron", nu=nu_step,
-                                   transposed_stab=False)
-        t0 = time.time()
-        nres = solve_newton_layered(
-            ns_k, lp.n2d, lp.n_planes, lp.bs, lp.arrays, mask, g, x, lp.E,
-            rtol=1e-8, atol=1e-10 if nu_step == NU else 1e-9, max_it=30,
-            ksp_rtol=ksp_rtol, ksp_restart=50, ksp_max_restarts=40,
-            pc=pc, mg=hier)
-        x = nres.x
-        wall = time.time() - t0
-        rungs.append((nu_step, int(nres.iters),
-                      [int(k) for k in nres.history[:, 2]],
-                      float(nres.resnorm), wall))
-        print(f"dfg3d_fine: nu={nu_step} its={int(nres.iters)} "
-              f"|F|={float(nres.resnorm):.3e} "
+    r = solve_dfg3d_from_rest(prob, ksp_rtol=ksp_rtol, pc=pc)
+    for nu_step, its, _ksp, fnorm, wall in r.rungs:
+        print(f"dfg3d_fine: nu={nu_step} its={its} |F|={fnorm:.3e} "
               f"({wall:.1f}s)", flush=True)
-
-    # consistent reaction force from the RAW residual at the solution
-    r = residual_layered(ns_k, lp.n2d, lp.n_planes, lp.bs, lp.arrays,
-                         x).cpu().numpy()
-    F = np.array([
-        -r[np.asarray(Wsp.velocity_dof(obst, c))].sum()
-        for c in range(3)])
-    cd, cl = _coefficients(F)
-    u, p = Wsp.split(x.cpu().numpy())
-    cd_s, cl_s = _coefficients(-traction_force_3d(mesh, u, p, 5, NU))
-    print(f"dfg3d_fine: Cd={cd:.5f} Cl={cl:.6f} "
-          f"(surface Cd={cd_s:.5f} Cl={cl_s:.6f}) "
+    print(f"dfg3d_fine: Cd={r.cd:.5f} Cl={r.cl:.6f} "
+          f"(surface Cd={r.cd_surface:.5f} Cl={r.cl_surface:.6f}) "
           f"total {time.time() - t_all:.1f}s", flush=True)
-    return DFG3DResult(mesh, u, p, cd, cl, int(nres.iters),
-                       bool(nres.converged), cd_s, cl_s, rungs)
+    return r
 
 
 def solve_dfg3d(scale: float = 1.0,

@@ -93,6 +93,7 @@ def build_layered(
     n_planes: int,
     dtype: Optional[torch.dtype] = None,
     device=None,
+    chunk_cells: int = ASM_CHUNK,
 ) -> LayeredPattern:
     """Build the layered pattern for an extruded equal-order mixed space.
 
@@ -106,6 +107,11 @@ def build_layered(
     built all the same and ``arrays.sasm`` is None.  The single-process
     structured route (``matrix_values_layered``, ``residual_layered``)
     raises on such a pattern.
+
+    ``chunk_cells``: the cells one call of the structured route's SoA
+    kernels takes (``structured._chunks``); each call is ~1,800 small
+    launches, so a larger chunk waits less on their dispatch and holds
+    more memory.
     """
     from ..config import default_dtype
 
@@ -176,7 +182,7 @@ def build_layered(
         ep_p[nc:] = nnz_layer        # scatter into the trash segment
 
     sasm = build_structured_plan(mesh, cd_p, cc_p, ep_p, n2d, Lp, E, bs,
-                                 device)
+                                 device, chunk_cells=chunk_cells)
     arrays = LayeredArrays.from_numpy(dict(
         cell_dofs=cd_p, cell_coords=cc_p, ell_pos=ep_p, cols=cols2d,
         row_ids=rows2d, diag_pos=diag_pos), sasm, device)

@@ -61,6 +61,9 @@ class StructuredAsm:
     # its coordinates from (``layered.layered_arrays_in``); None in a plan
     # converted from the JAX package's, which has no such field
     cell_ids: Optional[torch.Tensor] = None
+    # cells of one kernel call (``_chunks``): M3p is padded to whole
+    # chunks of max(1, chunk_cells // nl) columns
+    chunk_cells: int = ASM_CHUNK
 
     @classmethod
     def from_numpy(cls, fields: Mapping, device) -> "StructuredAsm":
@@ -72,10 +75,13 @@ class StructuredAsm:
 def build_structured_plan(mesh, cd_np, cc_np, ep_np, n2d: int, Lp: int,
                           E: int, bs: int, device=None,
                           max_degA: int = 8,
-                          cover: float = 0.99) -> Optional[StructuredAsm]:
+                          cover: float = 0.99,
+                          chunk_cells: int = ASM_CHUNK
+                          ) -> Optional[StructuredAsm]:
     """Host-side plan build from the (numpy) padded cell arrays, uploaded
     to ``device`` at the end; returns None when the mesh does not carry
-    the extrusion grid or the pattern fails layer-invariance."""
+    the extrusion grid or the pattern fails layer-invariance.
+    ``chunk_cells``: the cells the SoA kernels take in one call."""
     ext = getattr(mesh, "extrusion", None)
     if ext is None:
         return None
@@ -157,7 +163,7 @@ def build_structured_plan(mesh, cd_np, cc_np, ep_np, n2d: int, Lp: int,
         off_over = np.zeros((0, 1), np.float32)
 
     # ---- pad: columns to a chunk multiple, pairs to a multiple of 8 ---
-    m = max(1, ASM_CHUNK // nl)
+    m = max(1, chunk_cells // nl)
     M3p = -(-M3 // m) * m
     P = 8
     n_pp = -(-n_pairs // P) * P
@@ -191,7 +197,7 @@ def build_structured_plan(mesh, cd_np, cc_np, ep_np, n2d: int, Lp: int,
 
     if not soa_fields:
         return None
-    return StructuredAsm.from_numpy(dict(
+    return dataclasses.replace(StructuredAsm.from_numpy(dict(
         cell_dofs=scd.reshape(M3p * nl, ndl),
         cell_coords=scc.reshape((M3p * nl,) + cc.shape[1:]),
         alive=smask.reshape(M3p * nl),
@@ -202,7 +208,7 @@ def build_structured_plan(mesh, cd_np, cc_np, ep_np, n2d: int, Lp: int,
         over_ids=over_ids.astype(np.int32),
         cell_ids=cell_ids.reshape(M3p * nl),
         **soa_fields,
-    ), device)
+    ), device), chunk_cells=chunk_cells)
 
 
 def _build_soa_tables(cd, gi, alive, first_l, lb, scc, n2d, bs, nl, M3,
@@ -295,10 +301,10 @@ def gather_wT(sasm: StructuredAsm, Lp: int, w: torch.Tensor) -> torch.Tensor:
     return rows.reshape(M3p, ndl, nl).permute(1, 0, 2).reshape(ndl, M3p * nl)
 
 
-def _chunks(M3p: int, nl: int):
-    """Column chunks of ASM_CHUNK cells: yields (chunk index, first cell,
-    columns per chunk)."""
-    m = max(1, ASM_CHUNK // nl)
+def _chunks(M3p: int, nl: int, chunk_cells: int):
+    """Column chunks of ``chunk_cells`` cells (the plan's): yields (chunk
+    index, first cell, columns per chunk)."""
+    m = max(1, chunk_cells // nl)
     for k in range(M3p // m):
         yield k, k * m * nl, m
 
@@ -315,7 +321,7 @@ def matrix_values_structured_soa(kernel, E: int, Lp: int, bs: int,
     wT = gather_wT(sasm, Lp, w)
     alive = sasm.alive.to(w.dtype)
     buf = w.new_empty((M3p * e2, nl))
-    for k, c0, m in _chunks(M3p, nl):
+    for k, c0, m in _chunks(M3p, nl, sasm.chunk_cells):
         sl = slice(c0, c0 + m * nl)
         J = kernel.jac_soa(sasm.coordsT[:, sl], wT[:, sl]) * alive[sl]
         buf[k * m * e2:(k + 1) * m * e2] = \
@@ -341,7 +347,7 @@ def residual_structured(kernel, Lp: int, sasm: StructuredAsm,
     wT = gather_wT(sasm, Lp, w)
     alive = sasm.alive.to(w.dtype)
     rbufz = w.new_zeros((M3p * ndl + 1, nl))          # + appended zero row
-    for k, c0, m in _chunks(M3p, nl):
+    for k, c0, m in _chunks(M3p, nl, sasm.chunk_cells):
         sl = slice(c0, c0 + m * nl)
         r = kernel.res_soa(sasm.coordsT[:, sl], wT[:, sl]) * alive[sl]
         rbufz[k * m * ndl:(k + 1) * m * ndl] = \
@@ -370,7 +376,7 @@ def matrix_values_structured(kernel, E: int, Lp: int, bs: int,
     e2 = ndl * ndl
     M3p = sasm.cell_dofs.shape[0] // nl
     buf = w.new_empty((M3p * e2, nl))
-    for k, c0, m in _chunks(M3p, nl):
+    for k, c0, m in _chunks(M3p, nl, sasm.chunk_cells):
         sl = slice(c0, c0 + m * nl)
         J = _cell_jacobians(kernel, sasm.cell_coords[sl],
                             sasm.cell_dofs[sl], w)

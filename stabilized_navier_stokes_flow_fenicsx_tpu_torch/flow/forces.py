@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``flow/forces.py`` (the boundary
 integrals are host numpy; ``reaction_force`` reads the raw residual from
-the assembler's device and sums on the host).  Replicates the
+the assembler's device and sums on the host; ``reaction_from_residual``
+sums on the residual's device and reads three numbers).  Replicates the
 reference's drag/lift evaluations:
 
 * 2D tangential-gradient formulation (DFG_2D_Validation.py:197-214):
@@ -18,14 +19,15 @@ P1 fields: cell gradients are constant, facet pressure is the nodal mean.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from ..mesh.core import SimplexMesh, facets_of_cells
+from ..utils.profiling import read, traced
 
 
-def _facet_owners(mesh: SimplexMesh, facets: np.ndarray) -> np.ndarray:
+def facet_owners(mesh: SimplexMesh, facets: np.ndarray) -> np.ndarray:
     """Owner cell of each (boundary) facet given as sorted vertex rows."""
     fv, owners = facets_of_cells(mesh.cell, mesh.cells)
     nv = mesh.n_nodes
@@ -68,7 +70,7 @@ def dfg_2d_coefficients(
 ) -> Tuple[float, float]:
     """(C_D, C_L) with the reference's tangential-gradient formula."""
     facets = mesh.facets[mesh.facet_markers == obstacle_marker]
-    owners = _facet_owners(mesh, facets)
+    owners = facet_owners(mesh, facets)
     a = mesh.points[facets[:, 0]][:, :2]
     b = mesh.points[facets[:, 1]][:, :2]
     t = b - a
@@ -98,16 +100,21 @@ def dfg_2d_coefficients(
     return float(cd), float(cl)
 
 
+@traced("traction")
 def traction_force_3d(
     mesh: SimplexMesh,
     u: np.ndarray,              # (n, 3)
     p: np.ndarray,
     obstacle_marker: int,
     nu: float,
+    owners: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """F = integral of sigma.n over the marked surface (DFG 3D style)."""
+    """F = integral of sigma.n over the marked surface (DFG 3D style);
+    ``owners``: ``facet_owners`` of the marked facets, when the caller
+    keeps them (they take a sort of every cell's facets)."""
     facets = mesh.facets[mesh.facet_markers == obstacle_marker]
-    owners = _facet_owners(mesh, facets)
+    if owners is None:
+        owners = facet_owners(mesh, facets)
     tp = mesh.points[facets]
     av = np.cross(tp[:, 1] - tp[:, 0], tp[:, 2] - tp[:, 0]) / 2.0
     area = np.linalg.norm(av, axis=1)
@@ -157,3 +164,12 @@ def reaction_force(
     return np.array([
         -r[np.asarray(space.velocity_dof(obst, c))].sum()
         for c in range(dim)])
+
+
+def reaction_from_residual(r, dofs) -> np.ndarray:
+    """``reaction_force`` from a raw residual already assembled: minus
+    the sum of ``r`` over the obstacle's velocity dofs ``dofs`` (dim, n),
+    on ``r``'s device, with one read of the ``dim`` numbers."""
+    import torch
+
+    return read(-r[dofs].sum(1), torch.Tensor.cpu).double().numpy()
