@@ -5,8 +5,9 @@
 
 1. prints the card (nvidia-smi name and power limit) and builds kernels
    K1 (the layered SpMV, csrc/layered_spmv.cu), K2 (the plane
-   Gauss-Seidel sweep, csrc/plane_gs.cu) and K3 (the trace's RK45,
-   csrc/streamtrace.cu) with nvcc into build/torch_kernels/, all at
+   Gauss-Seidel sweep, csrc/plane_gs.cu), K3 (the trace's RK45,
+   csrc/streamtrace.cu) and K4 (the SoA element Jacobian and residual,
+   csrc/soa_element.cu) with nvcc into build/torch_kernels/, all at
    once, and prints ptxas's registers and spills;
 2. assembles the lc=0.04 production channel (230,692 dofs) at the stored
    solution's state, with its multigrid hierarchy, and holds K1's
@@ -229,8 +230,17 @@
    round-5 record), seed_steps within 1% of JAX's f64 count (JAX's
    float32 count of the same field and round 5's 931,396, traced in
    float32 on the TPU, printed beside), and K3's row on that reverse
-   grid as in phase 4; prints every wall beside the card's name and
-   power limit;
+   grid as in phase 4; K4's row at g (``k4_row``): the Jacobian's and
+   the residual's launch timed with L2 flushed (median of 10), the bound
+   (``assemble/soa_element.py::bound_ms``: the buffer written once and
+   the inputs read once over 3.35 TB/s, or the operations of the live
+   cells over 34 TFLOP/s of f64 vector math, the larger), the plain
+   twin's time (a warm call) and the largest difference to it relative to
+   its largest entry, and K4's launches in the Re=10 and Re=40 solves,
+   one a ``jacobian`` and a ``residual`` span of the program;
+   then K4's row at the DFG 3D-1Z pillar of the benchmark (scale 0.25,
+   1,492,908 tets, Lp 48, SUPS without ``transposed_stab``) at its g;
+   prints every wall beside the card's name and power limit;
 20. prints one JSON line of kernel results (error: the largest over the
    levels checked in phases 2, 11 and 14; times, bound and library time:
    level 0 of the channel with the mask fused, as the solve calls it, L2
@@ -256,6 +266,10 @@
    K3's entries (float64, float32): its launches in phases 4, 17 and
    19, its time, bounds and plain time on the lc=0.04 reverse grid and
    at the bench problem (``ms_bench``), ptxas's registers and spills.
+   K4's entries (jacobian, residual): its launches in phase 19's
+   solves, its time, bound, plain time and error at the bench problem
+   and at the pillar (``ms_dfg3d``), library none (no PyTorch call
+   computes the form), ptxas's registers, stack and spills.
    The block-CSR path and the host-LU path run no hand-written kernel,
    so they add no entry.
 
@@ -822,6 +836,90 @@ def load_latency_ns(torch, device, nbytes: int) -> float:
     streamtrace.chase(nxt, CHASE_LOADS)          # warm: the cycle cached
     ms = time_ms(lambda: streamtrace.chase(nxt, CHASE_LOADS), n=3)
     return ms * 1e6 / CHASE_LOADS
+
+
+K4_REPLACES = ("none: the JAX package evaluates the SoA element forms with "
+               "jnp code (stabilized_navier_stokes_flow_fenicsx_tpu/forms/"
+               "soa.py::make_sups_soa, make_ugn_soa), no Pallas kernel")
+K4_ENTRIES = ("jacobian", "residual")
+K4_PILLAR_SCALE = 0.25     # the benchmark's dfg3d-1z (near_growth 0.15)
+
+
+def k4_ptxas() -> dict:
+    """K4's registers, stack frame and spill bytes by instantiation
+    (entry, flux code, dtype), from this process's nvcc log."""
+    import re
+
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import nvcc
+
+    out, fn = {}, None
+    for line in nvcc.LOGS.get("soa_element", "").splitlines():
+        m = re.search(r"soa_(jacobian|residual)_kernelILi(\d)E([df])E", line)
+        if m and "Compiling entry function" in line:
+            fn = (f"{m.group(1)}[{m.group(2)}, "
+                  f"{'float64' if m.group(3) == 'd' else 'float32'}]")
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            out.setdefault(fn, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
+def k4_row(torch, np, kern, sasm, Lp: int, w, label: str) -> dict:
+    """K4's Jacobian and residual launches on the plan ``sasm`` at the
+    state w: each timed with L2 flushed, its bound, the plain twin's
+    time (its second call, host clock around a synchronise), the largest
+    difference to the twin relative to the twin's largest entry, and
+    ptxas's lines when this process built the library."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
+        soa_element, structured)
+
+    flush = L2Flush(torch, w.device)
+    live = int(sasm.alive.sum())
+    flux = soa_element.kernel_args(kern)[0]
+    row = {"label": label, "cells": int(sasm.alive.numel()),
+           "live_cells": live, "ptxas": k4_ptxas()}
+    plain = {"jacobian": structured._jac_buffer_plain,
+             "residual": structured._res_buffer_plain}
+    for entry in K4_ENTRIES:
+        fn = getattr(soa_element, entry)
+        ms = time_flushed_ms(lambda: fn(kern, sasm, Lp, w), flush, n=10)
+        out = fn(kern, sasm, Lp, w)
+        plain[entry](kern, Lp, sasm, w)         # warm, as in a solve
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twin = plain[entry](kern, Lp, sasm, w)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        scale = float(twin.abs().max())
+        rel = float((out - twin).abs().max()) / scale
+        del out, twin
+        b = soa_element.bound_ms(entry, flux, sasm, Lp, w, live)
+        row[entry] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["ms"],
+                          bound_by=b["bound_by"], bytes=b["bytes"],
+                          flops=b["flops"], rel_err=rel)
+        print(f"K4 {label} {entry}: {ms:.3f} ms flushed ({live} live of "
+              f"{row['cells']} cells, {str(w.dtype)[6:]}); bound "
+              f"{b['ms']:.3f} ms ({b['bound_by']}: {b['bytes'] / 1e9:.3f} "
+              f"GB at 3.35 TB/s {b['bytes_ms']:.3f} ms, "
+              f"{b['flops'] / 1e9:.2f} GFLOP {b['flops_ms']:.3f} ms; "
+              f"{b['ms'] / ms:.1%} of it); plain twin {plain_ms:.1f} ms; "
+              f"max |K4 - twin| / max |twin| {rel:.2e}", flush=True)
+        _bar(rel <= 1e-12, f"K4 {label} {entry} within 1e-12 of its twin")
+    del flush
+    print(f"K4 ptxas: {json.dumps(row['ptxas'])}", flush=True)
+    if row["ptxas"]:          # this process built the library
+        _bar(all(v.get("spill_stores", 1) == 0
+                 and v.get("spill_loads", 1) == 0
+                 for v in row["ptxas"].values())
+             and len(row["ptxas"]) == 12,
+             "K4: 12 instantiations, 0 spill bytes")
+    return row
 
 
 def k3_row(torch, np, mesh, u, seeds, device, label: str) -> dict:
@@ -2390,9 +2488,7 @@ def run_bench_problem(torch, np, img, card, device):
     checks by pair, K1 launches and K2 launches of the Re=10 and Re=40
     solves by pair)."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.assembly import (
-        ASM_CHUNK)
+        layered_spmv, soa_element)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
         matrix_values_layered, residual_layered)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
@@ -2409,6 +2505,8 @@ def run_bench_problem(torch, np, img, card, device):
         solve_newton_layered)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
         for_and_rev_streamtrace)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts, spans)
 
     rule, refs = _bench_rule()
     lc, r5 = rule.LC, rule.ROUND5
@@ -2440,9 +2538,10 @@ def run_bench_problem(torch, np, img, card, device):
     res_ms = time_ms(lambda: residual_layered(
         kern, lp.n2d, lp.n_planes, lp.bs, a, st.g), 5)
     print(f"bench assembly at g: Jacobian {jac_ms:.2f} ms, residual "
-          f"{res_ms:.2f} ms (CUDA events, median of 5; "
-          f"{-(-shape['n_cells'] // ASM_CHUNK)} chunks of {ASM_CHUNK} cells) "
-          f"({card})", flush=True)
+          f"{res_ms:.2f} ms (CUDA events, median of 5; one K4 launch and "
+          f"the reduction each) ({card})", flush=True)
+    k4 = k4_row(torch, np, kern, a.sasm, lp.n_planes, st.g,
+                f"bench lc={lc:g}")
     levels = rule.port_levels(st, kern, st.g)
     print(f"K1 shapes at lc={lc:g} (J(g), Re=10): (E, Lp, n2d) per level "
           f"{[(op.values.shape[3], op.n_planes, op.n2d) for op in levels]}",
@@ -2505,6 +2604,8 @@ def run_bench_problem(torch, np, img, card, device):
     cv = rule.part(refs, "converged")
     layered_spmv.reset_launches()
     plane_gs.reset_launches()
+    k4_before = counts(soa_element.COUNTER)
+    sid0 = max((sp[0] for sp in spans()), default=-1)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sol10 = solve_ns_flow(RE, img, RATIO, channel_mesh_size=lc, coarse_lc=lc,
@@ -2550,6 +2651,15 @@ def run_bench_problem(torch, np, img, card, device):
          "bench Re=40 took the warm route (no coarse phase)")
     _hold_solution(np, rule, rule.part(refs, "re40"), sol40, "bench Re=40",
                    sol40.newton_iters, cv["idx"])
+    k4_launches = {}
+    for key, n in counts(soa_element.COUNTER, k4_before).items():
+        k4_launches[key[-1]] = k4_launches.get(key[-1], 0) + n
+    evals = {e: sum(1 for sp in spans() if sp[0] > sid0 and sp[3] == e)
+             for e in K4_ENTRIES}
+    print(f"bench Re=10 and Re=40: K4 launches {k4_launches}, the "
+          f"program's jacobian and residual spans {evals}", flush=True)
+    _bar(k4_launches == evals, "bench Re=10 and Re=40: one K4 launch a "
+         "Jacobian and a residual evaluation")
     k1_launches = {k: k1_10.get(k, 0) + k1_40.get(k, 0)
                    for k in set(k1_10) | set(k1_40)}
     k2_launches = {k: k2_10.get(k, 0) + k2_40.get(k, 0)
@@ -2629,7 +2739,26 @@ def run_bench_problem(torch, np, img, card, device):
     print(f"phase 19 walls (s): "
           f"{json.dumps({k: round(v, 3) for k, v in walls.items()})} "
           f"({card})", flush=True)
-    return k1, k2, k1_launches, k2_launches, k3
+    return k1, k2, k1_launches, k2_launches, k3, k4, k4_launches
+
+
+def run_k4_pillar(torch, np, card, device) -> dict:
+    """K4's row at the DFG 3D-1Z pillar of the benchmark's
+    ``dfg3d-1z`` configuration (scale 0.25; the textbook SUPS flux) at
+    its g."""
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import dfg3d
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
+        make_ns_sups_kernel)
+
+    t0 = time.perf_counter()
+    prob = dfg3d.setup_dfg3d(K4_PILLAR_SCALE, 1.0, 0.15, 3, device=device)
+    print(f"K4 pillar set-up (scale {K4_PILLAR_SCALE}): "
+          f"{time.perf_counter() - t0:.2f} s host, {prob.mesh.n_cells} "
+          f"cells, Lp {prob.lp.n_planes} ({card})", flush=True)
+    kern = make_ns_sups_kernel("tetrahedron", nu=dfg3d.NU,
+                               transposed_stab=False)
+    return k4_row(torch, np, kern, prob.lp.arrays.sasm, prob.lp.n_planes,
+                  prob.g, f"DFG 3D-1Z pillar scale {K4_PILLAR_SCALE}")
 
 
 def _dtypes(torch, pair) -> tuple:
@@ -2660,7 +2789,7 @@ def main() -> int:
                     f"script)")
     sys.path.insert(0, ROOT)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
+        layered_spmv, soa_element)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
         streamtrace)
@@ -2686,7 +2815,8 @@ def main() -> int:
     layered_spmv.build()
     plane_gs.build()
     streamtrace.build()
-    print(f"K1, K2 and K3 build: {time.perf_counter() - t0:.2f} s",
+    soa_element.build()
+    print(f"K1, K2, K3 and K4 build: {time.perf_counter() - t0:.2f} s",
           flush=True)
     print("\n".join(line for log in nvcc.LOGS.values()
                     for line in log.splitlines() if "ptxas" in line),
@@ -2720,7 +2850,9 @@ def main() -> int:
                                                    card, device)
         run_clis(torch, cli, card)
         k1_bench, k2_bench, k1_bench_launches, k2_bench_launches, \
-            k3_bench = run_bench_problem(torch, np, img, card, device)
+            k3_bench, k4_bench, k4_launches = run_bench_problem(
+                torch, np, img, card, device)
+        k4_pillar = run_k4_pillar(torch, np, card, device)
     except Exception as e:  # report the failing phase, exit nonzero
         import traceback
 
@@ -2754,6 +2886,9 @@ def main() -> int:
     if k2_bench_launches.get((torch.float64, torch.float64), 0) == 0:
         return fail("the bench problem's solves never launched K2 "
                     "(float64, float64)")
+    if not all(k4_launches.get(e, 0) for e in K4_ENTRIES):
+        return fail(f"the bench problem's solves never launched K4 for "
+                    f"each entry: {k4_launches}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -2833,7 +2968,23 @@ def main() -> int:
         plain_ms_bench=k3_bench[name]["plain_ms"],
         ptxas=k3["ptxas"].get(name), library_ms=None,
         library="none: no PyTorch call integrates an ODE")
-        for name in ("float64", "float32")]}), flush=True)
+        for name in ("float64", "float32")] + [dict(
+        name=f"soa_element[{entry}]", route="cuda",
+        source=f"{PKG}/csrc/soa_element.cu", replaces=K4_REPLACES,
+        launches=k4_launches.get(entry, 0), path="bench",
+        max_rel_err=max(k4_bench[entry]["rel_err"],
+                        k4_pillar[entry]["rel_err"]),
+        ms_bench=k4_bench[entry]["ms"],
+        bound_ms_bench=k4_bench[entry]["bound_ms"],
+        bound_by_bench=k4_bench[entry]["bound_by"],
+        plain_ms_bench=k4_bench[entry]["plain_ms"],
+        ms_dfg3d=k4_pillar[entry]["ms"],
+        bound_ms_dfg3d=k4_pillar[entry]["bound_ms"],
+        bound_by_dfg3d=k4_pillar[entry]["bound_by"],
+        plain_ms_dfg3d=k4_pillar[entry]["plain_ms"],
+        ptxas=k4_bench["ptxas"], library_ms=None,
+        library="none: no PyTorch call computes the SUPS/LSIC element form")
+        for entry in K4_ENTRIES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -49,13 +49,11 @@ NU_LADDER = (1e-1, 1e-2, 3e-3, NU)
 NEWTON_RTOL, NEWTON_ATOL, NEWTON_ATOL_LAST = 1e-8, 1e-9, 1e-10
 NEWTON_MAX_IT = 30
 KSP_RESTART, KSP_MAX_RESTARTS = 50, 40
-# cells one call of the SoA Jacobian or residual takes on the layered
-# route, at most: four times the channel's ASM_CHUNK, or the whole mesh
-# where it is smaller (a plan pads its cells to whole chunks).  At scale
-# 0.25 (1.49M tets, Lp 48) the channel's chunk made ~23 calls of ~1,800
-# small launches per Jacobian, and the card sat idle on their dispatch
-# (~2 s a Jacobian, 85-88% of a case idle); the larger chunk holds
-# ~0.7 GiB more at the peak.
+# cells one call of the plain SoA Jacobian or residual takes on the
+# layered route, at most: four times the channel's ASM_CHUNK, or the whole
+# mesh where it is smaller (a plan pads its cells to whole chunks).  On
+# the card K4 takes the whole mesh in one launch, and the chunk sets only
+# the plan's column padding.
 ASM_CHUNK_CELLS = 4 * ASM_CHUNK
 
 

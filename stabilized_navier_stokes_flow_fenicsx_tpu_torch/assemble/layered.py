@@ -108,10 +108,10 @@ def build_layered(
     structured route (``matrix_values_layered``, ``residual_layered``)
     raises on such a pattern.
 
-    ``chunk_cells``: the cells one call of the structured route's SoA
-    kernels takes (``structured._chunks``); each call is ~1,800 small
-    launches, so a larger chunk waits less on their dispatch and holds
-    more memory.
+    ``chunk_cells``: the cells one call of the structured route's plain
+    SoA twin takes on the CPU (``structured._chunks``), and so the
+    padding of the plan's columns; on the card K4 takes the whole mesh in
+    one launch.
     """
     from ..config import default_dtype
 

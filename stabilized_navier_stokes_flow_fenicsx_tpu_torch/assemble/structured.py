@@ -17,10 +17,13 @@ scatter.  The plan is derived from ``ell_pos`` and verified cell by cell
 at build time (layer invariance is checked, not assumed).
 
 The host plan (``build_structured_plan``) is numpy up to its final
-upload; the device half (``gather_wT``, ``matrix_values_structured_soa``,
-``residual_structured``, ``matrix_values_structured``,
-``_reduce_jac_buffer``) is plain PyTorch with Python loops over the
-ASM_CHUNK-sized column chunks the JAX package scanned over.
+upload.  On a CUDA tensor the SoA element forms of every cell are K4
+(``soa_element.py``, ``csrc/soa_element.cu``): one launch writes the
+Jacobian's or the residual's whole layer-minor buffer.  Their plain twin
+(``gather_wT`` and the kernel's ``jac_soa`` / ``res_soa`` in Python loops
+over the ``chunk_cells``-sized column chunks the JAX package scanned over)
+serves CPU tensors.  The reductions (``_reduce_jac_buffer``, the
+residual's ``_plane_shift_sum``) are plain PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import upload
+from . import soa_element
 from .assembly import ASM_CHUNK, _cell_jacobians
 
 
@@ -61,8 +65,9 @@ class StructuredAsm:
     # its coordinates from (``layered.layered_arrays_in``); None in a plan
     # converted from the JAX package's, which has no such field
     cell_ids: Optional[torch.Tensor] = None
-    # cells of one kernel call (``_chunks``): M3p is padded to whole
-    # chunks of max(1, chunk_cells // nl) columns
+    # cells of one call of the plain SoA twin (``_chunks``): M3p is padded
+    # to whole chunks of max(1, chunk_cells // nl) columns (K4 takes the
+    # whole mesh at once)
     chunk_cells: int = ASM_CHUNK
 
     @classmethod
@@ -309,11 +314,11 @@ def _chunks(M3p: int, nl: int, chunk_cells: int):
         yield k, k * m * nl, m
 
 
-def matrix_values_structured_soa(kernel, E: int, Lp: int, bs: int,
-                                 sasm: StructuredAsm,
-                                 w: torch.Tensor) -> torch.Tensor:
-    """(bs, bs, 3, E, Lp) Jacobian values via the SoA kernel
-    (forms/soa.py) and the plane-sliced w-gather."""
+def _jac_buffer_plain(kernel, Lp: int, sasm: StructuredAsm,
+                      w: torch.Tensor) -> torch.Tensor:
+    """K4's twin: the (M3p*256, nl) layer-minor element Jacobians from
+    the kernel's ``jac_soa`` (forms/soa.py), chunk by chunk, on the
+    plane-sliced w-gather."""
     nl = Lp - 1
     ndl = sasm.wdof.shape[1]
     e2 = ndl * ndl
@@ -326,7 +331,37 @@ def matrix_values_structured_soa(kernel, E: int, Lp: int, bs: int,
         J = kernel.jac_soa(sasm.coordsT[:, sl], wT[:, sl]) * alive[sl]
         buf[k * m * e2:(k + 1) * m * e2] = \
             J.reshape(e2, m, nl).permute(1, 0, 2).reshape(m * e2, nl)
-    return _reduce_jac_buffer(buf, sasm, E, Lp, bs, ndl, nl, w.dtype)
+    return buf
+
+
+def _res_buffer_plain(kernel, Lp: int, sasm: StructuredAsm,
+                      w: torch.Tensor) -> torch.Tensor:
+    """K4's twin: the (M3p*ndl + 1, nl) layer-minor element residuals
+    (the last row zero) from the kernel's ``res_soa``, chunk by chunk."""
+    nl = Lp - 1
+    M3p, ndl = sasm.wdof.shape
+    wT = gather_wT(sasm, Lp, w)
+    alive = sasm.alive.to(w.dtype)
+    rbufz = w.new_zeros((M3p * ndl + 1, nl))          # + appended zero row
+    for k, c0, m in _chunks(M3p, nl, sasm.chunk_cells):
+        sl = slice(c0, c0 + m * nl)
+        r = kernel.res_soa(sasm.coordsT[:, sl], wT[:, sl]) * alive[sl]
+        rbufz[k * m * ndl:(k + 1) * m * ndl] = \
+            r.reshape(ndl, m, nl).permute(1, 0, 2).reshape(m * ndl, nl)
+    return rbufz
+
+
+def matrix_values_structured_soa(kernel, E: int, Lp: int, bs: int,
+                                 sasm: StructuredAsm,
+                                 w: torch.Tensor) -> torch.Tensor:
+    """(bs, bs, 3, E, Lp) Jacobian values via the SoA element forms: K4
+    on a CUDA tensor (one launch), the plain twin on a CPU tensor."""
+    if w.is_cuda:
+        buf = soa_element.jacobian(kernel, sasm, Lp, w)
+    else:
+        buf = _jac_buffer_plain(kernel, Lp, sasm, w)
+    return _reduce_jac_buffer(buf, sasm, E, Lp, bs, sasm.wdof.shape[1],
+                              Lp - 1, w.dtype)
 
 
 def _plane_shift_sum(rows, o):
@@ -339,19 +374,14 @@ def _plane_shift_sum(rows, o):
 
 def residual_structured(kernel, Lp: int, sasm: StructuredAsm,
                         w: torch.Tensor) -> torch.Tensor:
-    """(ndofs,) global residual via the SoA kernel + the structured
-    reduction: contributions land as (col*ndl + a, layer) rows and reduce
-    per 2D scalar dof with plane-shifted row gathers."""
-    nl = Lp - 1
-    M3p, ndl = sasm.wdof.shape
-    wT = gather_wT(sasm, Lp, w)
-    alive = sasm.alive.to(w.dtype)
-    rbufz = w.new_zeros((M3p * ndl + 1, nl))          # + appended zero row
-    for k, c0, m in _chunks(M3p, nl, sasm.chunk_cells):
-        sl = slice(c0, c0 + m * nl)
-        r = kernel.res_soa(sasm.coordsT[:, sl], wT[:, sl]) * alive[sl]
-        rbufz[k * m * ndl:(k + 1) * m * ndl] = \
-            r.reshape(ndl, m, nl).permute(1, 0, 2).reshape(m * ndl, nl)
+    """(ndofs,) global residual via the SoA element forms (K4 on a CUDA
+    tensor, the plain twin on a CPU tensor) + the structured reduction:
+    contributions land as (col*ndl + a, layer) rows and reduce per 2D
+    scalar dof with plane-shifted row gathers."""
+    if w.is_cuda:
+        rbufz = soa_element.residual(kernel, sasm, Lp, w)
+    else:
+        rbufz = _res_buffer_plain(kernel, Lp, sasm, w)
 
     def reduce(tab, off):
         return _plane_shift_sum(rbufz[tab], off[:, :, None].to(w.dtype))

@@ -22,6 +22,10 @@ where E_q : w_e -> s_q is the interpolation operator.  df/ds is exact via
 ``jax.vmap``), and E_q^T / E_q never materialize: each state component
 touches one basis value and three basis gradients.  For P1 the basis
 gradients are constant per cell, so only (u, p) vary per qp.
+
+These functions are the plain twin of K4 (``assemble/soa_element.py``,
+``csrc/soa_element.cu``), which evaluates the same fluxes on the card: a
+pair's ``flux`` and ``qdeg`` (``SoaPair``) say which.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ import torch
 
 from ..fem.elements import element, quadrature
 from ..utils.kernelbase import param_tensors
+
+# the pointwise flux of a pair, as K4 (csrc/soa_element.cu) numbers them:
+# SUPS with transposed_stab (the channel), SUPS without it, UGN
+FLUX_SUPS_T, FLUX_SUPS, FLUX_UGN = 0, 1, 2
+UGN_U_EPS = 1e-8        # the UGN flux's |u| guard (_ugn_flux's u_eps)
 
 # state component indices for dim = 3:
 #   0..2   u_i
@@ -226,7 +235,17 @@ def _p1_tables(cell: str, qdeg: int):
     return phi_np, dphi_np[0], qr.weights
 
 
-def _soa_pair(phi_np, wq_np, setup):
+class SoaPair(tuple):
+    """(res_soa, jac_soa), with ``flux`` (one of FLUX_*) and ``qdeg``: the
+    pointwise flux and the quadrature degree the pair evaluates."""
+
+    def __new__(cls, res_soa, jac_soa, flux: int, qdeg: int):
+        pair = super().__new__(cls, (res_soa, jac_soa))
+        pair.flux, pair.qdeg = flux, qdeg
+        return pair
+
+
+def _soa_pair(phi_np, wq_np, setup, flux: int, qdeg: int):
     """(res_soa, jac_soa) around ``setup(params, coordsT, wT) -> (flux,
     g, detJ)``: the quadrature loops of r_e and J_e shared by every
     flux."""
@@ -261,7 +280,7 @@ def _soa_pair(phi_np, wq_np, setup):
                              float(wq_np[q]))
         return J * detJ[None, None, :]
 
-    return res_soa, jac_soa
+    return SoaPair(res_soa, jac_soa, flux, qdeg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -285,7 +304,8 @@ def make_sups_soa(cell: str, transposed_stab: bool, qdeg: int):
         GdG = sum(G[i][j] * G[i][j] for i in range(3) for j in range(3))
         return _sups_flux(nu, C_I, G, trG, GdG, transposed_stab), g, detJ
 
-    return _soa_pair(phi_np, wq_np, setup)
+    return _soa_pair(phi_np, wq_np, setup,
+                     FLUX_SUPS_T if transposed_stab else FLUX_SUPS, qdeg)
 
 
 def _diameter_soa(coordsT, dtype):
@@ -312,6 +332,6 @@ def make_ugn_soa(cell: str, qdeg: int):
         invJ, detJ = _geometry_soa(coordsT, wT.dtype)
         g = _basis_grads(dphi0, invJ)
         h = _diameter_soa(coordsT, wT.dtype)
-        return _ugn_flux(nu, h, 1e-8, wT.dtype), g, detJ
+        return _ugn_flux(nu, h, UGN_U_EPS, wT.dtype), g, detJ
 
-    return _soa_pair(phi_np, wq_np, setup)
+    return _soa_pair(phi_np, wq_np, setup, FLUX_UGN, qdeg)

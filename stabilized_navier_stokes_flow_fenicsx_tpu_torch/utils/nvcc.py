@@ -30,8 +30,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LOGS: Dict[str, str] = {}          # nvcc/ptxas output by source name
-# the package's hand kernels: K1, K2, K3
-KERNELS = ("layered_spmv", "plane_gs", "streamtrace")
+# the package's hand kernels: K1, K2, K3, K4
+KERNELS = ("layered_spmv", "plane_gs", "streamtrace", "soa_element")
 _LIBS: Dict[str, ctypes.CDLL] = {}   # by library path
 
 

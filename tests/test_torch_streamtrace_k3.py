@@ -174,7 +174,8 @@ def test_params_carry_the_twin_constants(box):
 
 
 def test_k3_is_built_with_k1_and_k2():
-    assert nvcc.KERNELS == ("layered_spmv", "plane_gs", "streamtrace")
+    assert nvcc.KERNELS == ("layered_spmv", "plane_gs", "streamtrace",
+                            "soa_element")
     for name in nvcc.KERNELS:
         assert os.path.exists(os.path.join(
             ROOT, "stabilized_navier_stokes_flow_fenicsx_tpu_torch", "csrc",
