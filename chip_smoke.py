@@ -232,7 +232,7 @@
    float32 on the TPU, printed beside), and K3's row on that reverse
    grid as in phase 4; K4's row at g (``k4_row``): the Jacobian's and
    the residual's launch timed with L2 flushed (median of 10), the bound
-   (``assemble/soa_element.py::bound_ms``: the buffer written once and
+   (``tests/torch_kernel_bounds.py::k4_bound``: the buffer written once and
    the inputs read once over 3.35 TB/s, or the operations of the live
    cells over 34 TFLOP/s of f64 vector math, the larger), the plain
    twin's time (a warm call) and the largest difference to it relative to
@@ -284,15 +284,21 @@ import functools
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.append(os.path.join(ROOT, "tests"))
+# the kernels' bounds and timers, and the lc=0.04 channel (RE, RATIO, LC,
+# FIXTURE) whose V-cycle levels K1 and K2 are read on
+from torch_kernel_bounds import (  # noqa: E402
+    FIXTURE, HBM_BYTES_PER_S, LC, RATIO, RE, L2Flush, k1_bound, k1_levels,
+    k2_bound, k2_levels, k2_problem, k3_bounds, k4_bound, load_latency_ns,
+    solve_levels, time_b2b_ms, time_flushed_ms, time_ms)
+
 PKG = "stabilized_navier_stokes_flow_fenicsx_tpu_torch"
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
-FIXTURE = os.path.join(FIXTURES, "channel_ns_prod.npz")
 TRACE_FIXTURE = os.path.join(FIXTURES, "trace_prod.npz")
 BCSR_FIXTURES = tuple(os.path.join(FIXTURES, f"{name}.npz") for name in
                       ("cavity_ns", "duct_ns", "stokes_channel"))
@@ -301,13 +307,10 @@ CLI_REFS = os.path.join(FIXTURES, "cli_refs.npz")
 CLI_RULE = os.path.join(ROOT, "tests", "torch_cli_refs.py")
 CLI_ROOT = os.path.join(ROOT, "build", "chip_smoke", "cli")
 DFG3D_CD = 6.18533         # the literature drag of 3D-1Z (tests/test_dfg.py)
-RE, RATIO, LC = 10.0, 0.5, 0.04
 RE_WARM = 20.0
 NUM_SEEDS = 200            # reverse grid per side (InletBatchScript.py:41)
 TPU_KERNEL = ("stabilized_navier_stokes_flow_fenicsx_tpu/assemble/"
               "pallas_spmv.py:107")
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
-FLUSH_BYTES = 256 * 2 ** 20  # written between flushed launches (> 50 MB L2)
 # (values dtype, x dtype, rel-L2 tolerance of kernel vs plain, the path
 # whose launches the kernels line reports: "main" = phase 3, "tfqmr" =
 # phase 7, "f32" = phase 16): f64 differs only in summation order; with
@@ -338,125 +341,6 @@ K2_REPLACES = ("stabilized_navier_stokes_flow_fenicsx_tpu/solve/"
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
-
-
-def time_ms(fn, n: int = 20) -> float:
-    """Median milliseconds of ``fn`` over n timed calls (CUDA events),
-    after two warm-up calls."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-class L2Flush:
-    """Leaves L2 cold and clean: writes ``FLUSH_BYTES`` (> the 50 MB L2),
-    then reads as many others, so that the written lines are back in
-    memory before the timed call and their write-back is not timed."""
-
-    def __init__(self, torch, device):
-        self.write = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
-                                 device=device)
-        self.read = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32,
-                               device=device)
-
-    def __call__(self):
-        self.write.fill_(1)
-        self.read.sum()
-
-
-def time_flushed_ms(fn, flush, n: int = 30) -> float:
-    """Median milliseconds of one call of ``fn`` with L2 cold: before each
-    timed call ``flush()`` runs on the card (outside the events), which
-    also keeps the card busy while the host enqueues the call."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(n):
-        flush()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def time_b2b_ms(fn, n: int = 100) -> float:
-    """Milliseconds per call over n calls back to back (one pair of CUDA
-    events; L2 stays warm, and a call whose host work outlasts its device
-    work is timed by the host)."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n
-
-
-def solve_levels(n_lv: int) -> dict:
-    """The V-cycle levels each (values, x) pair runs on in the solves:
-    f64 values with f64 x are the outer operator (level 0) and, in phase
-    7's f64-valued V-cycle, the residuals of every level but the coarsest
-    (solved densely); x in f32 are the smoothers and spectral estimates
-    on every level, with bf16 values (mg_cheby_bf16: the Stokes solve and
-    phase 3's Newton) or f64 ones (mg_cheby: phase 7's Newton); bf16
-    values with f64 x are the bf16 V-cycle's residuals; f32 values with
-    f32 x are phase 16's outer operator (level 0) and the residuals of its
-    f32 plane-GS Stokes V-cycle (every level but the coarsest)."""
-    return {("float64", "float64"): range(n_lv - 1),
-            ("bfloat16", "float32"): range(n_lv),
-            ("bfloat16", "float64"): range(n_lv - 1),
-            ("float64", "float32"): range(n_lv),
-            ("float32", "float32"): range(n_lv - 1)}
-
-
-def k1_bytes(op, vdtype, xdtype, masked: bool) -> int:
-    """Bytes one K1 call must move: the 48 * E * Lp real values (not the
-    layout's padding), x read once, the mask read once when fused, y
-    written once, and the pair tables (cols, row_ptr)."""
-    import torch
-
-    E, Lp, n2d = op.values.shape[3], op.n_planes, op.n2d
-    vsize = torch.tensor([], dtype=vdtype).element_size()
-    asize = torch.tensor([], dtype=xdtype).element_size()
-    ndofs = Lp * n2d * 4
-    return (48 * E * Lp * vsize + (3 if masked else 2) * ndofs * asize
-            + 8 * E + 8 * (n2d + 1))
-
-
-def k1_bound(op, vdtype, xdtype, masked: bool):
-    """(bound_ms, bound_by): the larger of the bytes over the H100's
-    3.35 TB/s and the 2 * 48 * E * Lp FLOP over its peak for x's type
-    outside the tensor cores (67 TFLOP/s f32, 34 TFLOP/s f64; NVIDIA's
-    H100 SXM data sheet)."""
-    import torch
-
-    t_bytes = k1_bytes(op, vdtype, xdtype, masked) / HBM_BYTES_PER_S * 1e3
-    flops = 2 * 48 * op.values.shape[3] * op.n_planes
-    peak = 34e12 if xdtype == torch.float64 else 67e12
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def library_call(torch, op, vdtype, x, masked: bool):
@@ -503,45 +387,6 @@ def library_call(torch, op, vdtype, x, masked: bool):
             except (RuntimeError, NotImplementedError, TypeError) as err:
                 errors.append(f"{layout} {dt}: {str(err).splitlines()[0]}")
     raise RuntimeError(f"no PyTorch sparse product ran: {errors}")
-
-
-def k1_levels(torch, np, img, device):
-    """The lc=0.04 channel's V-cycle levels (solve/mg.py::LevelOperator,
-    f64 canonical values) at the stored solution's state, on the card:
-    the operands the solve hands K1."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
-        matrix_values_layered)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
-        _setup_layered, generate_channel_mesh)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
-        solve_inlet_profiles)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
-        make_ns_sups_kernel)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
-        galerkin_levels)
-
-    t0 = time.perf_counter()
-    inlet1, inlet2 = solve_inlet_profiles(img, RATIO, DEFAULT)
-    mesh, _, _ = generate_channel_mesh(img, LC, DEFAULT)
-    st = _setup_layered(mesh, inlet1, inlet2, torch.float64,
-                        DEFAULT.solver.mg_levels, device)
-    lp, a = st.lp, st.lp.arrays
-    w_ref = np.load(FIXTURE)["w"]
-    if w_ref.shape != (lp.ndofs,):
-        raise RuntimeError(f"mesh has {lp.ndofs} dofs, fixture "
-                           f"{w_ref.shape[0]}")
-    kern = make_ns_sups_kernel("tetrahedron", nu=1.0 / RE,
-                               C_I=DEFAULT.stab.C_I)
-    vals = matrix_values_layered(kern, lp.E, lp.n_planes, lp.bs, a,
-                                 torch.as_tensor(w_ref, device=device))
-    levels = galerkin_levels(st.mg, vals, a.cols, a.row_ids, a.row_ptr,
-                             a.diag_pos, st.mask, lp.n2d, lp.n_planes)
-    torch.cuda.synchronize()
-    print(f"K1 shapes: dofs {lp.ndofs}; (E, Lp, n2d) per V-cycle level "
-          f"{[(op.values.shape[3], op.n_planes, op.n2d) for op in levels]}; "
-          f"set-up {time.perf_counter() - t0:.2f} s", flush=True)
-    return levels
 
 
 def check_levels(torch, np, levels, pairs, device, on_levels=None):
@@ -618,23 +463,23 @@ def check_levels(torch, np, levels, pairs, device, on_levels=None):
 
 def run_main_path(torch, np, img, device):
     """Phase 3: the lc=0.04 continuation solve on the card."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
         solve_ns_flow)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
-    layered_spmv.reset_launches()
-    plane_gs.reset_launches()
+    since = counts("k1_launch"), counts("k2_launch")
     t0 = time.perf_counter()
     sol = solve_ns_flow(RE, img, RATIO, channel_mesh_size=LC, coarse_lc=LC,
                         device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(layered_spmv.LAUNCHES_BY_DTYPES)
-    total = layered_spmv.LAUNCHES
-    k2_launches = dict(plane_gs.LAUNCHES_BY_DTYPES)
+    k1 = counts("k1_launch", since[0])
+    launches = _pairs(k1)
+    total = sum(k1.values())
+    k2 = counts("k2_launch", since[1])
+    k2_launches = _pairs(k2)
 
     print(f"solve_ns_flow: {wall:.2f} s wall, timings "
           f"{json.dumps({k: round(v, 4) for k, v in sol.timings.items()})}",
@@ -649,7 +494,7 @@ def run_main_path(torch, np, img, device):
     print(f"K1 launches in the solve: {total} {_by_pair(launches)}",
           flush=True)
     print(f"K2 launches in the solve (its Stokes V-cycle, pc="
-          f"{DEFAULT.solver.pc!r}): {plane_gs.LAUNCHES} "
+          f"{DEFAULT.solver.pc!r}): {sum(k2.values())} "
           f"{_by_pair(k2_launches)}", flush=True)
 
     w_ref = np.load(FIXTURE)["w"]
@@ -666,7 +511,7 @@ def run_main_path(torch, np, img, device):
         raise RuntimeError(f"solution rel-L2 {rel:.3e} >= 1e-6")
     if total <= 0:
         raise RuntimeError("the solve never launched K1")
-    if plane_gs.LAUNCHES <= 0:
+    if not k2:
         raise RuntimeError("the solve never launched K2")
     return launches, k2_launches, sol, wall
 
@@ -686,18 +531,17 @@ def run_trace(torch, np, img, sol, device):
         outlet_image_from_trace)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
         for_and_rev_streamtrace)
-
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
-        streamtrace)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
     fx = np.load(TRACE_FIXTURE)
     inlet1, _ = solve_inlet_profiles(img, RATIO, DEFAULT)
-    streamtrace.reset_launches()
+    since = counts("k3_launch")
     t0 = time.perf_counter()
     res = for_and_rev_streamtrace(NUM_SEEDS, img, sol.mesh, sol.u,
                                   inlet1.mesh.points, DEFAULT, device=device)
     wall = time.perf_counter() - t0
-    k3_launches = streamtrace.LAUNCHES
+    k3_launches = sum(counts("k3_launch", since).values())
     st = res.stats
     inside = points_in_polygon(res.reverse_endpoints[:, 1:3],
                                res.inner_contour)
@@ -796,7 +640,6 @@ def check_trace_arithmetic(torch, np, sol, inlet1, device):
 K3_REPLACES = ("none: the JAX package traces with jnp code "
                "(stabilized_navier_stokes_flow_fenicsx_tpu/trace/"
                "streamtrace.py::trace_segment under vmap), no Pallas kernel")
-CHASE_LOADS = 100_000       # dependent loads a latency reading follows
 
 
 def ptxas_lines(np) -> dict:
@@ -821,21 +664,6 @@ def ptxas_lines(np) -> dict:
         if m and fn:
             out.setdefault(fn, {})["registers"] = int(m.group(1))
     return out
-
-
-def load_latency_ns(torch, device, nbytes: int) -> float:
-    """ns per load of one thread chasing a random cycle through an int64
-    table of ``nbytes`` (K3's yardstick: L2 for a table L2 holds)."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
-        streamtrace)
-
-    m = nbytes // 8
-    perm = torch.randperm(m, device=device)
-    nxt = torch.empty(m, dtype=torch.int64, device=device)
-    nxt[perm] = torch.roll(perm, -1)
-    streamtrace.chase(nxt, CHASE_LOADS)          # warm: the cycle cached
-    ms = time_ms(lambda: streamtrace.chase(nxt, CHASE_LOADS), n=3)
-    return ms * 1e6 / CHASE_LOADS
 
 
 K4_REPLACES = ("none: the JAX package evaluates the SoA element forms with "
@@ -881,7 +709,7 @@ def k4_row(torch, np, kern, sasm, Lp: int, w, label: str) -> dict:
 
     flush = L2Flush(torch, w.device)
     live = int(sasm.alive.sum())
-    flux = soa_element.kernel_args(kern)[0]
+    flux = soa_element.FLUX_NAMES[soa_element.kernel_args(kern)[0]]
     row = {"label": label, "cells": int(sasm.alive.numel()),
            "live_cells": live, "ptxas": k4_ptxas()}
     plain = {"jacobian": structured._jac_buffer_plain,
@@ -899,7 +727,7 @@ def k4_row(torch, np, kern, sasm, Lp: int, w, label: str) -> dict:
         scale = float(twin.abs().max())
         rel = float((out - twin).abs().max()) / scale
         del out, twin
-        b = soa_element.bound_ms(entry, flux, sasm, Lp, w, live)
+        b = k4_bound(entry, flux, sasm, Lp, w, live)
         row[entry] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["ms"],
                           bound_by=b["bound_by"], bytes=b["bytes"],
                           flops=b["flops"], rel_err=rel)
@@ -948,12 +776,8 @@ def k3_row(torch, np, mesh, u, seeds, device, label: str) -> dict:
                      n=5)
         _, steps, done = streamtrace.trace_k3(cfg_k3, dloc, u_cell, x0)
         longest = int(steps.max())
-        tables = (dloc.x_planes, dloc.tab2, dloc.prism_base,
-                  dloc.prism_geom, u_cell)
-        nbytes = (sum(t.numel() * t.element_size() for t in tables)
-                  + 2 * x0.numel() * x0.element_size() + 9 * len(seeds))
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_chain = longest * 6 * 4 * l2_ns * 1e-6
+        nbytes, bound_bytes, bound_chain = k3_bounds(dloc, u_cell, x0,
+                                                     longest, l2_ns)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         streamtrace.trace_particles_plain(cfg, dloc, u_cell.new_tensor(u),
@@ -980,18 +804,18 @@ def k3_row(torch, np, mesh, u, seeds, device, label: str) -> dict:
 def run_warm_sweep(torch, np, img, sol, device):
     """Phase 6: the Reynolds-sweep warm path from phase 3's solution.
     Returns the Re=20 solution."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
         solve_ns_flow)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
-    layered_spmv.reset_launches()
+    since = counts("k1_launch")
     t0 = time.perf_counter()
     sol20 = solve_ns_flow(RE_WARM, img, RATIO, channel_mesh_size=LC,
                           warm=sol, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = layered_spmv.LAUNCHES
+    launches = sum(counts("k1_launch", since).values())
     h = sol20.newton_history.get("fine_ns", np.zeros((0, 4)))
     print(f"warm Re={RE_WARM:g} solve: {wall:.2f} s wall, timings "
           f"{json.dumps({k: round(v, 4) for k, v in sol20.timings.items()})}",
@@ -1014,13 +838,13 @@ def run_tfqmr_main_path(torch, np, img, device):
     """Phase 7: the lc=0.04 solve with TFQMR as the Newton KSP."""
     import dataclasses
 
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import (
         DEFAULT, SolverConfig)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
         solve_ns_flow)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import newton
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
     # TFQMR needs a fixed linear preconditioner: under the bf16 V-cycle
     # (f32 iterate over bf16 values) its quasi-residual stalled at the
@@ -1039,7 +863,7 @@ def run_tfqmr_main_path(torch, np, img, device):
 
     newton.tfqmr = counted_tfqmr
     try:
-        layered_spmv.reset_launches()
+        since = counts("k1_launch")
         t0 = time.perf_counter()
         sol = solve_ns_flow(RE, img, RATIO, channel_mesh_size=LC,
                             coarse_lc=LC, cfg=cfg, device=device)
@@ -1047,8 +871,9 @@ def run_tfqmr_main_path(torch, np, img, device):
         wall = time.perf_counter() - t0
     finally:
         newton.tfqmr = tfqmr
-    launches = dict(layered_spmv.LAUNCHES_BY_DTYPES)
-    total = layered_spmv.LAUNCHES
+    k1 = counts("k1_launch", since)
+    launches = _pairs(k1)
+    total = sum(k1.values())
     steps = [row for h in sol.newton_history.values() for row in h]
     budget = scfg.ksp_restart * 40
     print(f"TFQMR solve_ns_flow: {wall:.2f} s wall, timings "
@@ -1434,14 +1259,14 @@ def run_dfg3d(torch, np, device):
     """Phase 11: K1 on the pillar operator's levels, then DFG 3D-1Z on the
     layered path, uncut.  Returns (kernel checks, K1 launches by pair)."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import dfg3d
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
         matrix_values_layered)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
         make_ns_sups_kernel)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
         galerkin_levels)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
     t0 = time.perf_counter()
     mesh, _W, lp, mask, g, hier, _obst = dfg3d._fine_setup(
@@ -1461,12 +1286,13 @@ def run_dfg3d(torch, np, device):
     del levels, vals
     check_ugn_soa(torch, np, mesh, device)
 
-    layered_spmv.reset_launches()
+    since = counts("k1_launch")
     t0 = time.perf_counter()
     r = dfg3d.solve_dfg3d_fine(0.5, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(layered_spmv.LAUNCHES_BY_DTYPES)
+    k1 = counts("k1_launch", since)
+    launches = _pairs(k1)
     by_pair = _by_pair(launches)
     for nu, its, ksp, fnorm, t in r.rungs:
         print(f"DFG 3D rung nu={nu:g}: Newton steps {its}, FGMRES its {ksp}, "
@@ -1474,15 +1300,14 @@ def run_dfg3d(torch, np, device):
     print(f"DFG 3D-1Z scale 0.5: {wall:.2f} s wall, {r.mesh.n_nodes} nodes; "
           f"Cd {r.cd:.5f} ({100 * (r.cd - 6.18533) / 6.18533:+.2f}%), Cl "
           f"{r.cl:.6f}; surface Cd {r.cd_surface:.5f}, Cl "
-          f"{r.cl_surface:.6f}; K1 launches {layered_spmv.LAUNCHES} "
+          f"{r.cl_surface:.6f}; K1 launches {sum(k1.values())} "
           f"{by_pair}", flush=True)
     _bar(r.converged and np.isfinite(r.u).all() and np.isfinite(r.p).all(),
          "DFG 3D converged")
     _bar(abs(r.cd - 6.18533) / 6.18533 < 0.02, "Cd within 2% of 6.18533")
     _bar(0.009401 / 3 < r.cl < 3.5 * 0.009401,
          "Cl in (0.003134, 0.032904)")
-    missing = [c["pair"] for c in checks if launches.get(
-        tuple(getattr(torch, n) for n in c["pair"]), 0) == 0]
+    missing = [c["pair"] for c in checks if not launches.get(c["pair"])]
     _bar(not missing, f"the DFG 3D solve launched K1 for every pair "
                       f"(missing {missing})")
     return checks, launches
@@ -1501,17 +1326,18 @@ def _print_solution(sol, what: str, wall: float) -> None:
 def run_apps_route(torch, np, img, device):
     """Phase 12: the coarse-to-fine route the apps take (the default
     ``coarse_lc=0.1``)."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
         solve_ns_flow)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
-    layered_spmv.reset_launches()
+    since = counts("k1_launch")
     t0 = time.perf_counter()
     sol = solve_ns_flow(RE, img, RATIO, LC, device=device)
     torch.cuda.synchronize()
     _print_solution(sol, "apps' route (coarse_lc=0.1 -> lc=0.04)",
                     time.perf_counter() - t0)
+    k1 = sum(counts("k1_launch", since).values())
     fine = sol.newton_history["fine_ns"]
     t = sol.timings
     w_ref = np.load(FIXTURE)["w"]
@@ -1520,14 +1346,14 @@ def run_apps_route(torch, np, img, device):
           f"fine_setup {t.get('fine_setup', -1):.3f} s, fine_ns "
           f"{t['fine_ns']:.3f} s; fine Newton steps {len(fine)}, FGMRES its "
           f"{[int(r[2]) for r in fine]}; Stokes FGMRES its {sol.stokes_iters}; "
-          f"K1 launches {layered_spmv.LAUNCHES}; rel-L2 vs "
+          f"K1 launches {k1}; rel-L2 vs "
           f"channel_ns_prod.npz {rel:.3e}", flush=True)
     _bar("interpolate" in t and "fine_setup" in t,
          "the solve ran the coarse-to-fine branch")
     _bar(sol.converged and np.isfinite(sol.w).all(), "apps' route converged")
     _bar(len(fine) >= 1, "at least one fine Newton step")
     _bar(rel < 1e-6, "apps' route rel-L2 < 1e-6 of channel_ns_prod.npz")
-    _bar(layered_spmv.LAUNCHES > 0, "the apps' route launched K1")
+    _bar(k1 > 0, "the apps' route launched K1")
 
 
 RE_LADDER, RE_LADDER_WARM = 60.0, 70.0
@@ -1586,6 +1412,8 @@ def check_slab_operand(torch, np, kern, lp, mask_p, g_p, w0_np, device):
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.parallel.layered_shard import (
         SlabOperand, _halo_values, halo_extend, make_slab_assembly,
         shard_layered_inputs)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
     arrays, slab, meta, (mask_s, _g_s, w0_s) = shard_layered_inputs(
         lp, mask_p, g_p, w0_np, None, device)
@@ -1617,10 +1445,10 @@ def check_slab_operand(torch, np, kern, lp, mask_p, g_p, w0_np, device):
                         None, vdt)
         whole = layered_spmv.LayeredOperand(
             values, arrays.cols, arrays.row_ptr, n2d, mask=mask_s, dtype=vdt)
-        layered_spmv.reset_launches()
+        since = counts("k1_launch")
         y_k = A(x.to(xdt))
         torch.cuda.synchronize()
-        launched = layered_spmv.LAUNCHES
+        launched = sum(counts("k1_launch", since).values())
         y_p = layered_spmv.layered_matvec_plain(whole, x.to(xdt))
         rel = float(torch.linalg.vector_norm(y_k.double() - y_p.double())
                     / torch.linalg.vector_norm(y_p.double()))
@@ -1640,8 +1468,6 @@ def run_sharded(torch, np, img, device):
     import torch.distributed as dist
 
     import __graft_entry_torch__ as graft
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
         build_layered)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
@@ -1656,6 +1482,8 @@ def run_sharded(torch, np, img, device):
         gather_dofs, pad_mask_g, padded_planes, sharded_newton_layered)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
         solve_newton_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
     # entry() on the card against the same function on CPU tensors
     fn_c, args_c = graft.entry(device)
@@ -1714,7 +1542,7 @@ def run_sharded(torch, np, img, device):
         t_host = time.perf_counter() - t0
         slab_checks = check_slab_operand(torch, np, kern, lp, mask_p, g_p,
                                          w0_np, device)
-        layered_spmv.reset_launches()
+        since = counts("k1_launch")
         t0 = time.perf_counter()
         out = sharded_newton_layered(
             kern, lp, mask_p, g_p, w0_np, device=device, pc="mg",
@@ -1722,8 +1550,9 @@ def run_sharded(torch, np, img, device):
         x = gather_dofs(out.x)
         torch.cuda.synchronize()
         t_shard = time.perf_counter() - t0
-        launches = dict(layered_spmv.LAUNCHES_BY_DTYPES)
-        total = layered_spmv.LAUNCHES
+        k1 = counts("k1_launch", since)
+        launches = _pairs(k1)
+        total = sum(k1.values())
     finally:
         comm.destroy_process_group()
         if os.path.exists(rendezvous):
@@ -1750,86 +1579,10 @@ def run_sharded(torch, np, img, device):
          and all(abs(a - b) <= 1 for a, b in zip(its, its_ref)),
          "FGMRES counts within 1 per step")
     _bar(total > 0, "the sharded solve launched K1")
-    missing = [c["pair"] for c in slab_checks if launches.get(
-        tuple(getattr(torch, n) for n in c["pair"]), 0) == 0]
+    missing = [c["pair"] for c in slab_checks if not launches.get(c["pair"])]
     _bar(not missing, f"the sharded solve launched K1 for every pair checked "
                       f"on the slab (missing {missing})")
     return slab_checks, launches
-
-
-def k2_bytes(op) -> int:
-    """Bytes one K2 call must move: the three value slices and the block
-    inverses (value type) once, the mask and r read once and x written
-    once (iterate type), and the pair tables (cols, row_ptr)."""
-    vsize, asize = op.values.element_size(), op.mask.element_size()
-    ndofs = op.Lp * op.n2d * 4
-    return ((3 * op.E + op.n2d) * op.Lp * 16 * vsize + 3 * ndofs * asize
-            + 8 * op.E + 8 * (op.n2d + 1))
-
-
-def k2_bound(op):
-    """(bound_ms, bound_by): the larger of the bytes over the H100's
-    3.35 TB/s and the sweep's FLOP over its peak for the iterate's type
-    outside the tensor cores (67 TFLOP/s f32, 34 TFLOP/s f64).  Per plane
-    and direction: the coupling product (2 FLOP per value of a slice) and
-    ``inner_sweeps`` products with V0, each stage with a 4x4 block
-    inverse per row (2 * 16 FLOP)."""
-    import torch
-
-    t_bytes = k2_bytes(op) / HBM_BYTES_PER_S * 1e3
-    stages = 1 + op.inner_sweeps
-    per_plane = stages * (2 * 16 * op.E + 2 * 16 * op.n2d)
-    flops = (2 if op.symmetric else 1) * op.Lp * per_plane
-    peak = 34e12 if op.adtype == torch.float64 else 67e12
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def k2_problem(torch, np, img, device):
-    """The lc=0.04 channel's layered set-up with its multigrid hierarchy
-    and the Stokes and NS kernels: what phase 15 and profile_torch_k2.py
-    build K2's levels from."""
-    from types import SimpleNamespace
-
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
-        _setup_layered, generate_channel_mesh)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
-        solve_inlet_profiles)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
-        make_ns_sups_kernel)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.stokes import (
-        make_stokes_kernel)
-
-    inlet1, inlet2 = solve_inlet_profiles(img, RATIO, DEFAULT)
-    mesh, _, _ = generate_channel_mesh(img, LC, DEFAULT)
-    st = _setup_layered(mesh, inlet1, inlet2, torch.float64,
-                        DEFAULT.solver.mg_levels, device)
-    stokes_k = make_stokes_kernel(
-        "tetrahedron", nu=1.0, mu_T_coeff=DEFAULT.stab.stokes_mu_T_coeff)
-    ns_k = make_ns_sups_kernel("tetrahedron", nu=1.0 / RE,
-                               C_I=DEFAULT.stab.C_I)
-    states = {"Stokes J(0)": (stokes_k, torch.zeros_like(st.mask)),
-              "NS J(w*)": (ns_k, torch.as_tensor(np.load(FIXTURE)["w"],
-                                                 device=device))}
-    return SimpleNamespace(st=st, stokes_k=stokes_k, states=states)
-
-
-def k2_levels(problem, state: str):
-    """The Galerkin levels (solve/mg.py::LevelOperator) of ``problem`` at
-    ``state`` ("Stokes J(0)" or "NS J(w*)"); K2 smooths all but the
-    coarsest."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
-        matrix_values_layered)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
-        galerkin_levels)
-
-    st = problem.st
-    lp, a = st.lp, st.lp.arrays
-    kern, w = problem.states[state]
-    vals = matrix_values_layered(kern, lp.E, lp.n_planes, lp.bs, a, w)
-    return galerkin_levels(st.mg, vals, a.cols, a.row_ids, a.row_ptr,
-                           a.diag_pos, st.mask, lp.n2d, lp.n_planes)
 
 
 def k2_plan_line(K, ms: float, chain_ms: float) -> str:
@@ -1915,12 +1668,11 @@ def run_plane_gs(torch, np, img, device):
     Stokes solve with pc="mg" and "mg_bf16" against the "mg_cheby_bf16"
     one.  Returns (checks by pair, K2 launches of the mg_bf16 solve by
     pair)."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
         solve_linear_layered)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
     t0 = time.perf_counter()
     problem = k2_problem(torch, np, img, device)
@@ -1938,19 +1690,19 @@ def run_plane_gs(torch, np, img, device):
 
     sols, launches = {}, {}
     for pc in ("mg_cheby_bf16", "mg", "mg_bf16"):
-        plane_gs.reset_launches()
-        layered_spmv.reset_launches()
+        since = counts("k1_launch"), counts("k2_launch")
         t0 = time.perf_counter()
         res = solve_linear_layered(
             problem.stokes_k, lp.n2d, lp.n_planes, lp.bs, a, st.mask, st.g,
             lp.E, 1e-8, DEFAULT.solver.ksp_restart, pc, st.mg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[pc] = dict(plane_gs.LAUNCHES_BY_DTYPES)
+        k2 = counts("k2_launch", since[1])
+        launches[pc] = _pairs(k2)
         print(f"Stokes lc={LC:g} pc={pc}: FGMRES its {res.iters}, converged "
               f"{res.converged}, {wall:.2f} s wall; K2 launches "
-              f"{plane_gs.LAUNCHES} {_by_pair(launches[pc])}, K1 launches "
-              f"{layered_spmv.LAUNCHES}", flush=True)
+              f"{sum(k2.values())} {_by_pair(launches[pc])}, K1 launches "
+              f"{sum(counts('k1_launch', since[0]).values())}", flush=True)
         _bar(res.converged and bool(torch.isfinite(res.x).all()),
              f"the pc={pc} Stokes solve converged")
         sols[pc] = res.x.cpu().numpy()
@@ -1962,8 +1714,7 @@ def run_plane_gs(torch, np, img, device):
                          f"agree to rel-L2 1e-6")
     for (vname, aname), pc in (((v, x), "mg" if p == "main" else p)
                                for v, x, _, p in K2_PAIRS if p != "f32"):
-        key = (getattr(torch, vname), getattr(torch, aname))
-        _bar(launches[pc].get(key, 0) > 0,
+        _bar(launches[pc].get((vname, aname), 0) > 0,
              f"the pc={pc} Stokes solve launched K2 ({vname}, {aname})")
     return checks, launches["mg_bf16"]
 
@@ -1971,8 +1722,6 @@ def run_plane_gs(torch, np, img, device):
 def run_f32_main_path(torch, np, img, device, f64_wall):
     """Phase 16: the main path in float32 with refinement (an f64
     residual on f64 geometry).  Returns (K1, K2) launches by pair."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
         layered_arrays_in, matrix_values_layered, residual_layered)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
@@ -1982,18 +1731,19 @@ def run_f32_main_path(torch, np, img, device, f64_wall):
         solve_inlet_profiles)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
         make_ns_sups_kernel)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
     scfg = DEFAULT.solver
-    layered_spmv.reset_launches()
-    plane_gs.reset_launches()
+    since = counts("k1_launch"), counts("k2_launch")
     t0 = time.perf_counter()
     sol = solve_ns_flow(RE, img, RATIO, channel_mesh_size=LC, coarse_lc=LC,
                         dtype=torch.float32, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1 = dict(layered_spmv.LAUNCHES_BY_DTYPES)
-    k2 = dict(plane_gs.LAUNCHES_BY_DTYPES)
+    k1_all = counts("k1_launch", since[0])
+    k2_all = counts("k2_launch", since[1])
+    k1, k2 = _pairs(k1_all), _pairs(k2_all)
 
     print(f"float32 solve_ns_flow + refinement: {wall:.2f} s wall (phase "
           f"3's float64 solve: {f64_wall:.2f} s), timings "
@@ -2009,8 +1759,8 @@ def run_f32_main_path(torch, np, img, device, f64_wall):
     print(f"refined {sol.refined}: {sol.refine_iters} steps (budget "
           f"{scfg.refine_max_it}), |F| {sol.refine_resnorm:.3e}, converged "
           f"{sol.converged}", flush=True)
-    print(f"K1 launches in the float32 solve: {layered_spmv.LAUNCHES} "
-          f"{_by_pair(k1)}; K2: {plane_gs.LAUNCHES} {_by_pair(k2)}",
+    print(f"K1 launches in the float32 solve: {sum(k1_all.values())} "
+          f"{_by_pair(k1)}; K2: {sum(k2_all.values())} {_by_pair(k2)}",
           flush=True)
 
     # what one refinement step costs: an f64 residual on the f64 geometry
@@ -2047,7 +1797,7 @@ def run_f32_main_path(torch, np, img, device, f64_wall):
          f"refinement within refine_max_it = {scfg.refine_max_it} steps")
     _bar(w.shape == w_ref.shape and rel < 1e-6,
          "w + w_lo within rel-L2 1e-6 of channel_ns_prod.npz")
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16 = "float32", "bfloat16"
     _bar(k1.get((f32, f32), 0) > 0 and k1.get((bf16, f32), 0) > 0,
          "K1 launched for (float32, float32) and (bfloat16, float32)")
     _bar(k2.get((f32, f32), 0) > 0, "K2 launched for (float32, float32)")
@@ -2103,11 +1853,6 @@ def _mb(path: str) -> float:
     return os.path.getsize(path) / 1e6
 
 
-def _launch_delta(before, after) -> dict:
-    return {k: n - before.get(k, 0) for k, n in after.items()
-            if n - before.get(k, 0)}
-
-
 def _check_round_trip(np, base, name, mesh, values, what):
     """The checkpoint ``base`` read back by the port equals the field and
     its mesh bit for bit; returns (the read's seconds, the .h5's MB)."""
@@ -2149,16 +1894,13 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.apps import (
         compare_images, inlet_batch, ns_channel, stokes_channel,
         streamtrace_cli, sweep)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
         solve_inlet_profiles)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
-        streamtrace)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
         for_and_rev_streamtrace)
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
     t_phase = time.perf_counter()
     root = os.path.join(ROOT, "build", "chip_smoke", "apps")
@@ -2173,20 +1915,15 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
     clock = _Clock()
     runs, walls, splits, k1_by_cli, k2_by_cli = [], {}, {}, {}, {}
 
-    def counts():
-        return (dict(layered_spmv.LAUNCHES_BY_DTYPES),
-                dict(plane_gs.LAUNCHES_BY_DTYPES))
-
     def cli(name, fn):
         os.chdir(dirs[name])
-        before = counts()
+        before = counts("k1_launch"), counts("k2_launch")
         clock.take()
         t0 = time.perf_counter()
         out = fn()
         walls[name] = time.perf_counter() - t0
-        after = counts()
-        k1_by_cli[name] = _launch_delta(before[0], after[0])
-        k2_by_cli[name] = _launch_delta(before[1], after[1])
+        k1_by_cli[name] = _pairs(counts("k1_launch", before[0]))
+        k2_by_cli[name] = _pairs(counts("k2_launch", before[1]))
         splits[name] = clock.take()
         return out
 
@@ -2201,9 +1938,7 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
         return out
 
     stokes_res = []
-    layered_spmv.reset_launches()
-    plane_gs.reset_launches()
-    streamtrace.reset_launches()
+    since = {n: counts(n) for n in ("k1_launch", "k2_launch", "k3_launch")}
     try:
         for module in (inlet_batch, ns_channel):
             clock.wrap(module, "solve_ns_flow", "solve")
@@ -2242,8 +1977,8 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
     finally:
         clock.restore()
         os.chdir(cwd)
-    k1, k2 = counts()
-    k3 = streamtrace.LAUNCHES
+    k1_all, k2_all, k3_all = (counts(n, s) for n, s in since.items())
+    k1, k2, k3 = _pairs(k1_all), _pairs(k2_all), sum(k3_all.values())
 
     print(f"phase 17 on {card}", flush=True)
     # the sweep: Re=10 cold through the apps' route, Re=20 warm from it
@@ -2375,11 +2110,10 @@ def run_apps(torch, np, img, sol20_phase6, card, device):
               f"{_split(splits[name], wall)}, K1 launches "
               f"{_by_pair(k1_by_cli[name])}, K2 launches "
               f"{_by_pair(k2_by_cli[name])} ({card})", flush=True)
-    print(f"apps path: K1 launches {layered_spmv.LAUNCHES} {_by_pair(k1)}; "
-          f"K2 launches {plane_gs.LAUNCHES} {_by_pair(k2)} ({card})",
+    print(f"apps path: K1 launches {sum(k1_all.values())} {_by_pair(k1)}; "
+          f"K2 launches {sum(k2_all.values())} {_by_pair(k2)} ({card})",
           flush=True)
-    _bar(layered_spmv.LAUNCHES > 0 and plane_gs.LAUNCHES > 0,
-         "the apps path launched K1 and K2")
+    _bar(bool(k1) and bool(k2), "the apps path launched K1 and K2")
     # the sweep's two run_trace_save traces and streamtrace_cli's: one
     # launch a direction each
     _bar(k3 == 6, f"the apps path's three traces launched K3 6 times "
@@ -2395,9 +2129,8 @@ def run_clis(torch, cli, card):
     """Phase 18: the last validation CLIs and the examples as a user types
     them (phases 8 and 9 ran lid_driven and dfg2d), each held to the JAX
     package's results at the same argv."""
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
+    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
+        counts)
 
     t_phase = time.perf_counter()
     print(f"phase 18 on {card}", flush=True)
@@ -2411,12 +2144,12 @@ def run_clis(torch, cli, card):
     _bar(abs(cd - DFG3D_CD) / DFG3D_CD < 0.02,
          f"dfg3d: Cd {cd:.6f} within 2% of {DFG3D_CD}")
 
-    layered_spmv.reset_launches()
-    plane_gs.reset_launches()
+    since = counts("k1_launch"), counts("k2_launch")
     cli.in_process("duct_stokes")
     cli.in_process("duct_stokes_th")
     print(f"duct_stokes and duct_stokes_th launched K1 "
-          f"{layered_spmv.LAUNCHES} and K2 {plane_gs.LAUNCHES} times (the "
+          f"{sum(counts('k1_launch', since[0]).values())} and K2 "
+          f"{sum(counts('k2_launch', since[1]).values())} times (the "
           f"block-CSR and Schur routes carry no hand-written kernel)",
           flush=True)
 
@@ -2488,7 +2221,7 @@ def run_bench_problem(torch, np, img, card, device):
     checks by pair, K1 launches and K2 launches of the Re=10 and Re=40
     solves by pair)."""
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv, soa_element)
+        soa_element)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered import (
         matrix_values_layered, residual_layered)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.config import DEFAULT
@@ -2500,7 +2233,6 @@ def run_bench_problem(torch, np, img, card, device):
         make_stokes_kernel)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.io.xdmf import (
         read_xdmf_function, write_xdmf_function)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.driver import (
         solve_newton_layered)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
@@ -2602,8 +2334,7 @@ def run_bench_problem(torch, np, img, card, device):
 
     # (d) the converged Re=10 solve on the user's path
     cv = rule.part(refs, "converged")
-    layered_spmv.reset_launches()
-    plane_gs.reset_launches()
+    since = counts("k1_launch"), counts("k2_launch")
     k4_before = counts(soa_element.COUNTER)
     sid0 = max((sp[0] for sp in spans()), default=-1)
     torch.cuda.reset_peak_memory_stats()
@@ -2612,8 +2343,8 @@ def run_bench_problem(torch, np, img, card, device):
                           device=device)
     torch.cuda.synchronize()
     walls["re10"] = time.perf_counter() - t0
-    k1_10 = dict(layered_spmv.LAUNCHES_BY_DTYPES)
-    k2_10 = dict(plane_gs.LAUNCHES_BY_DTYPES)
+    k1_10 = _pairs(counts("k1_launch", since[0]))
+    k2_10 = _pairs(counts("k2_launch", since[1]))
     peak10 = torch.cuda.max_memory_allocated()
     _print_solution(sol10, f"bench Re=10 ({card})", walls["re10"])
     n10 = _newton_its(sol10)
@@ -2628,15 +2359,14 @@ def run_bench_problem(torch, np, img, card, device):
     _hold_solution(np, rule, cv, sol10, "bench Re=10", n10, cv["idx"])
 
     # (e) Re=40 by the sweep's warm route, from (d)
-    layered_spmv.reset_launches()
-    plane_gs.reset_launches()
+    since = counts("k1_launch"), counts("k2_launch")
     t0 = time.perf_counter()
     sol40 = solve_ns_flow(BENCH_RE40, img, RATIO, channel_mesh_size=lc,
                           coarse_lc=lc, device=device, warm=sol10)
     torch.cuda.synchronize()
     walls["re40"] = time.perf_counter() - t0
-    k1_40 = dict(layered_spmv.LAUNCHES_BY_DTYPES)
-    k2_40 = dict(plane_gs.LAUNCHES_BY_DTYPES)
+    k1_40 = _pairs(counts("k1_launch", since[0]))
+    k2_40 = _pairs(counts("k2_launch", since[1]))
     _print_solution(sol40, f"bench Re=40 warm ({card})", walls["re40"])
     print(f"bench Re=40: Newton {sol40.newton_iters} (JAX "
           f"{refs['re40__newton_its']}; round 5: {r5['re40_newton_its']} f32 "
@@ -2761,15 +2491,17 @@ def run_k4_pillar(torch, np, card, device) -> dict:
                   prob.g, f"DFG 3D-1Z pillar scale {K4_PILLAR_SCALE}")
 
 
-def _dtypes(torch, pair) -> tuple:
-    """("float64", "float32") -> (torch.float64, torch.float32)."""
-    return tuple(getattr(torch, n) for n in pair)
+def _pairs(launches: dict) -> dict:
+    """K1's or K2's launches (``counts``) by (values dtype, iterate
+    dtype): a launch key's 4th and 5th entries."""
+    out = {}
+    for key, n in launches.items():
+        out[key[3:5]] = out.get(key[3:5], 0) + n
+    return out
 
 
 def _by_pair(launches) -> dict:
-    return {f"{str(v).removeprefix('torch.')} values, "
-            f"{str(x).removeprefix('torch.')} x": n
-            for (v, x), n in launches.items()}
+    return {f"{v} values, {x} x": n for (v, x), n in launches.items()}
 
 
 def main() -> int:
@@ -2867,7 +2599,7 @@ def main() -> int:
     on_slab = {c["pair"]: c for c in slab_checks}
 
     def count(c, path):
-        return by_path[path].get(_dtypes(torch, c["pair"]), 0)
+        return by_path[path].get(c["pair"], 0)
 
     missing = [c["pair"] for c in checks if count(c, c["path"]) == 0]
     if missing:
@@ -2879,11 +2611,11 @@ def main() -> int:
         return fail(f"the TFQMR solve never launched K1 for {missing}")
     # phase 19's Re=10 and Re=40 solves run the main path's pairs
     missing = [c["pair"] for c in checks if c["path"] == "main"
-               and k1_bench_launches.get(_dtypes(torch, c["pair"]), 0) == 0]
+               and k1_bench_launches.get(c["pair"], 0) == 0]
     if missing:
         return fail(f"the bench problem's solves never launched K1 for "
                     f"{missing}")
-    if k2_bench_launches.get((torch.float64, torch.float64), 0) == 0:
+    if k2_bench_launches.get(("float64", "float64"), 0) == 0:
         return fail("the bench problem's solves never launched K2 "
                     "(float64, float64)")
     if not all(k4_launches.get(e, 0) for e in K4_ENTRIES):
@@ -2921,17 +2653,15 @@ def main() -> int:
         bound_ms_bench=k1_bench[c["pair"]]["bound_ms"],
         plain_ms_bench=k1_bench[c["pair"]]["plain_ms"],
         library_ms_bench=k1_bench[c["pair"]]["library_ms"],
-        launches_bench=k1_bench_launches.get(_dtypes(torch, c["pair"]), 0))
+        launches_bench=k1_bench_launches.get(c["pair"], 0))
         for c in checks] + [dict(
         name=f"plane_gs[{vname} values, {aname} iterate]",
         route="cuda",
         source=f"{PKG}/csrc/plane_gs.cu",
         replaces=K2_REPLACES,
-        launches=k2_by_path[path].get(
-            (getattr(torch, vname), getattr(torch, aname)), 0),
+        launches=k2_by_path[path].get((vname, aname), 0),
         path=path,
-        launches_apps=k2_apps.get(
-            (getattr(torch, vname), getattr(torch, aname)), 0),
+        launches_apps=k2_apps.get((vname, aname), 0),
         max_abs_err=max(k2_checks[(vname, aname)]["errs"]),
         ms=k2_checks[(vname, aname)]["ms"],
         plain_ms=k2_checks[(vname, aname)]["plain_ms"],
@@ -2943,8 +2673,7 @@ def main() -> int:
         bound_ms_bench=k2_bench[(vname, aname)]["bound_ms"],
         plain_ms_bench=k2_bench[(vname, aname)]["plain_ms"],
         plan_bench=k2_bench[(vname, aname)]["plan"],
-        launches_bench=k2_bench_launches.get(
-            _dtypes(torch, (vname, aname)), 0),
+        launches_bench=k2_bench_launches.get((vname, aname), 0),
         library_ms=None,
         library="none: no single PyTorch call computes a plane Gauss-Seidel "
                 "sweep")

@@ -5,8 +5,9 @@ optionally an earlier version of it, at the lc=0.04 channel's shapes.
     python3 profile_torch_k1.py [--old DIR] [--out build/profile_k1]
 
 On the V-cycle levels of the lc=0.04 channel at the stored solution's
-state (``chip_smoke.k1_levels``), for the three (values, x) type pairs
-on the levels where the solve launches each:
+state (``tests/torch_kernel_bounds.py::k1_levels``), for the five
+(values, x) type pairs on the levels where the solves launch each
+(``solve_levels``):
 
 1. ``--old DIR``: an earlier K1, given as a directory that holds its
    ``assemble/layered_spmv.py`` (with ``layered_matvec_cuda(values, x,
@@ -77,8 +78,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_k1: needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_kernel_bounds as kb
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
         layered_spmv as new)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import nvcc
@@ -103,15 +104,15 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     img = make_annulus_image(os.path.join(args.out, "circle.png"), "circle")
     device = torch.device("cuda")
-    levels = cs.k1_levels(torch, np, img, device)
-    flush = cs.L2Flush(torch, device)
+    levels = kb.k1_levels(torch, np, img, device)
+    flush = kb.L2Flush(torch, device)
     rng = np.random.default_rng(0)
     xs = [torch.as_tensor(rng.standard_normal(op.mask.numel()),
                           device=device) for op in levels]
-    on_levels = cs.solve_levels(len(levels))
+    on_levels = kb.solve_levels(len(levels))
     rows = []
     one = torch.zeros(1, device=device)
-    floor = cs.time_flushed_ms(lambda: one.fill_(1.0), flush)
+    floor = kb.time_flushed_ms(lambda: one.fill_(1.0), flush)
     print(json.dumps({"floor_ms": floor, "what": "one-element fill_, L2 "
                       "flushed: the timing's floor", "card": smi}),
           flush=True)
@@ -121,14 +122,14 @@ def main() -> int:
         rows.append(kw)
         print(json.dumps(kw), flush=True)
 
-    for vname, xname, _, _ in cs.PAIRS:
+    for vname, xname in on_levels:
         vdt, xdt = getattr(torch, vname), getattr(torch, xname)
         for k in on_levels[(vname, xname)]:
             op = levels[k]
             xt = xs[k].to(xdt)
             mk = op.mask.to(xdt)
             for masked in (False, True):
-                bound, _ = cs.k1_bound(op, vdt, xdt, masked)
+                bound, _ = kb.k1_bound(op, vdt, xdt, masked)
                 base = dict(pair=f"{vname}/{xname}", level=k,
                             Lp=op.n_planes, masked=masked, bound_ms=bound)
                 K = new.LayeredOperand(op.values, op.cols, op.row_ptr,
@@ -154,8 +155,9 @@ def main() -> int:
                 times = {name: [] for name in fns}
                 b2b = {name: [] for name in fns}
                 for name in order:
-                    times[name].append(cs.time_flushed_ms(fns[name], flush))
-                    b2b[name].append(cs.time_b2b_ms(fns[name]))
+                    times[name].append(kb.time_flushed_ms(fns[name],
+                                                          flush))
+                    b2b[name].append(kb.time_b2b_ms(fns[name]))
                 for name in fns:
                     record(**base, kernel=name, ms=times[name],
                            ms_b2b=b2b[name],
@@ -167,24 +169,24 @@ def main() -> int:
                                masked=True, kernel=name,
                                host_us_per_call=host_us(torch, fns[name]))
     # launch shapes of the current kernel at level 0
-    for vname, xname, _, _ in cs.PAIRS:
+    for vname, xname in on_levels:
         vdt, xdt = getattr(torch, vname), getattr(torch, xname)
         block0 = new.BLOCK_THREADS, new.VEC_BYTES
         op, xt = levels[0], xs[0].to(xdt)
         for masked in (False, True):
-            bound, _ = cs.k1_bound(op, vdt, xdt, masked)
+            bound, _ = kb.k1_bound(op, vdt, xdt, masked)
             for threads in BLOCKS:
                 for vec in VEC_BYTES:
                     new.BLOCK_THREADS, new.VEC_BYTES = threads, vec
                     K = new.LayeredOperand(
                         op.values, op.cols, op.row_ptr, op.n2d,
                         mask=op.mask if masked else None, dtype=vdt)
-                    ms = cs.time_flushed_ms(lambda: K(xt), flush)
+                    ms = kb.time_flushed_ms(lambda: K(xt), flush)
                     record(pair=f"{vname}/{xname}", level=0, masked=masked,
                            kernel="new", block_threads=threads,
                            vec_bytes=vec,
                            launch_shape=new.launch_shape(K.Lp_pad, vdt, xdt),
-                           ms=ms, ms_b2b=cs.time_b2b_ms(lambda: K(xt)),
+                           ms=ms, ms_b2b=kb.time_b2b_ms(lambda: K(xt)),
                            share_of_bound=bound / ms)
             new.BLOCK_THREADS, new.VEC_BYTES = block0
     with open(os.path.join(args.out, "k1.json"), "w") as f:

@@ -5,9 +5,10 @@ and optionally an earlier version of it, at the lc=0.04 channel's shapes.
     python3 profile_torch_k2.py [--old DIR] [--out build/profile_k2]
 
 On the smoothed V-cycle levels 0-2 of the lc=0.04 channel at the Stokes
-matrix J(0) (``chip_smoke.k2_levels``), for the type pairs (f64 values,
-f64 iterate) and (bf16 values, f32 iterate), the symmetric sweep with two
-inner passes (what ``pc="mg"`` and ``"mg_bf16"`` run):
+matrix J(0) (``tests/torch_kernel_bounds.py::k2_levels``), for the type
+pairs (f64 values, f64 iterate) and (bf16 values, f32 iterate), the
+symmetric sweep with two inner passes (what ``pc="mg"`` and
+``"mg_bf16"`` run):
 
 1. ``--old DIR``: an earlier K2, given as a directory that holds its
    ``solve/plane_gs.py`` (with ``PlaneGSOperand(values, cols, row_ptr,
@@ -85,8 +86,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_k2: needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_kernel_bounds as kb
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import (
         plane_gs as new)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import nvcc
@@ -108,15 +109,15 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     img = make_annulus_image(os.path.join(args.out, "circle.png"), "circle")
     device = torch.device("cuda")
-    levels = cs.k2_levels(cs.k2_problem(torch, np, img, device),
+    levels = kb.k2_levels(kb.k2_problem(torch, np, img, device),
                           "Stokes J(0)")[:-1]
-    flush = cs.L2Flush(torch, device)
+    flush = kb.L2Flush(torch, device)
     rng = np.random.default_rng(0)
     rs = [torch.as_tensor(rng.standard_normal(op.mask.numel()),
                           device=device) for op in levels]
     rows = []
     one = torch.zeros(1, device=device)
-    floor = cs.time_flushed_ms(lambda: one.fill_(1.0), flush)
+    floor = kb.time_flushed_ms(lambda: one.fill_(1.0), flush)
     print(json.dumps({"floor_ms": floor, "what": "one-element fill_, L2 "
                       "flushed: the timing's floor", "card": smi}),
           flush=True)
@@ -133,7 +134,7 @@ def main() -> int:
             args_op = (op.values, op.cols, op.row_ptr, op.diag_pos, op.mask,
                        op.n2d)
             K = new.PlaneGSOperand(*args_op, dtype=vdt)
-            bound, bound_by = cs.k2_bound(K)
+            bound, bound_by = kb.k2_bound(K)
             base = dict(pair=f"{vname}/{aname}", level=k,
                         shape=[K.E, K.Lp, K.n2d], stages=K.stages,
                         bound_ms=bound, bound_by=bound_by)
@@ -147,8 +148,8 @@ def main() -> int:
             times = {name: [] for name in fns}
             b2b = {name: [] for name in fns}
             for name in order:
-                times[name].append(cs.time_flushed_ms(fns[name], flush))
-                b2b[name].append(cs.time_b2b_ms(fns[name], 20))
+                times[name].append(kb.time_flushed_ms(fns[name], flush))
+                b2b[name].append(kb.time_b2b_ms(fns[name], 20))
             for name in fns:
                 record(**base, kernel=name, ms=times[name],
                        ms_b2b=b2b[name], share_of_bound=bound
@@ -165,8 +166,8 @@ def main() -> int:
                            refused=str(e))
                     continue
                 err = float((Kc(r) - new.plane_gs_plain(Kc, r)).abs().max())
-                ms = cs.time_flushed_ms(lambda: Kc(r), flush)
-                chain = cs.time_ms(Kc.barrier_chain, 10)
+                ms = kb.time_flushed_ms(lambda: Kc(r), flush)
+                chain = kb.time_ms(Kc.barrier_chain, 10)
                 p = Kc.plan
                 record(**base, kernel="new", cluster=cluster, split=p.split,
                        threads=p.threads, slots=p.slots,

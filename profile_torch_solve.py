@@ -155,8 +155,6 @@ def main() -> int:
         print("profile_torch_solve: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble import (
-        layered_spmv)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.channel import (
         solve_ns_flow)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import (
@@ -174,7 +172,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     def solve(label):
-        layered_spmv.reset_launches()
+        since = profiling.counts("k1_launch")
         t0 = time.perf_counter()
         sol = solve_ns_flow(RE, img, RATIO, channel_mesh_size=args.lc,
                             coarse_lc=args.coarse_lc or args.lc,
@@ -185,7 +183,9 @@ def main() -> int:
             raise RuntimeError(f"{label} solve did not converge")
         print(f"{label}: wall {wall:.3f} s, timings "
               f"{json.dumps({k: round(v, 4) for k, v in sol.timings.items()})}"
-              f", K1 launches {layered_spmv.LAUNCHES}", flush=True)
+              f", K1 launches "
+              f"{sum(profiling.counts('k1_launch', since).values())}",
+              flush=True)
         return wall, sol
 
     cold, _ = solve("cold")

@@ -56,8 +56,6 @@ def main() -> int:
         solve_inlet_profiles)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace.pipeline import (
         for_and_rev_streamtrace)
-    from stabilized_navier_stokes_flow_fenicsx_tpu_torch.trace import (
-        streamtrace)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import (
         profiling)
     from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
@@ -91,11 +89,11 @@ def main() -> int:
     warm, stats = trace("warm")
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
-    streamtrace.reset_launches()
+    since = profiling.counts("k3_launch")
     with torch.profiler.profile(activities=act) as prof:
         with profiling.span("case"):
             prof_wall, _ = trace("profiled")
-    k3_launches = streamtrace.LAUNCHES
+    k3_launches = sum(profiling.counts("k3_launch", since).values())
     events = prof.events()
     busy = busy_us(events) / 1e6
     spans = span_table(prof, profiling.cases()[-1])

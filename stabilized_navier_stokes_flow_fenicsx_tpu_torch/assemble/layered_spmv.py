@@ -30,22 +30,20 @@ The kernel is built at first use with ``nvcc`` from the package's own
 source into ``build/torch_kernels/`` of the checkout (utils/nvcc.py;
 route: a shared library with a plain C interface, loaded with ctypes).
 Each launch adds one to the tracer's counter ``k1_launch`` under its
-shape (E, Lp, n2d, values dtype, x dtype, masked; utils/profiling.py);
-``LAUNCHES`` and ``LAUNCHES_BY_DTYPES`` read it.
+shape (E, Lp, n2d, values dtype, x dtype, masked; utils/profiling.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..utils import nvcc
-from ..utils.profiling import count, counts
+from ..utils.profiling import count, dtype_name
 
 COUNTER = "k1_launch"
-_reset_at: Dict = {}      # the counter at the last ``reset_launches``
 
 _BS = 4
 _NROW = 3 * _BS * _BS     # value rows of one pair
@@ -280,37 +278,3 @@ def layered_matvec_plain(op: LayeredOperand,
     y2d.index_add_(0, op.row_ids, contrib)
     y = y2d[:, :, :Lp].permute(2, 0, 1).reshape(-1)
     return y if m is None else m * y + (1.0 - m) * x
-
-
-def dtype_name(dtype: torch.dtype) -> str:
-    """``torch.float64`` -> ``"float64"`` (a launch key's dtype)."""
-    return str(dtype).replace("torch.", "")
-
-
-def launch_attr(counter: str, since: Dict, name: str):
-    """A kernel module's ``LAUNCHES``, the launches the tracer's
-    ``counter`` counted after ``since`` (the counter at the module's last
-    ``reset_launches``), or ``LAUNCHES_BY_DTYPES``, the same by (values
-    dtype, iterate dtype): a launch key's 4th and 5th entries."""
-    launches = counts(counter, since)
-    if name == "LAUNCHES":
-        return sum(launches.values())
-    if name != "LAUNCHES_BY_DTYPES":
-        raise AttributeError(f"no attribute {name!r}")
-    out: Dict[Tuple[torch.dtype, torch.dtype], int] = {}
-    for key, n in launches.items():
-        pair = (getattr(torch, key[3]), getattr(torch, key[4]))
-        out[pair] = out.get(pair, 0) + n
-    return out
-
-
-def __getattr__(name: str):
-    """``LAUNCHES`` and ``LAUNCHES_BY_DTYPES`` (by (values dtype, x
-    dtype)): K1 launches since import or the last ``reset_launches``."""
-    return launch_attr(COUNTER, _reset_at, name)
-
-
-def reset_launches() -> None:
-    """Count the launches from now."""
-    _reset_at.clear()
-    _reset_at.update(counts(COUNTER))

@@ -16,44 +16,29 @@ loops of ``assemble/structured.py``, which serve CPU tensors; on a CUDA
 tensor the structured route launches K4 or raises.  The kernel is built
 at first use with ``nvcc`` into ``build/torch_kernels/`` (utils/nvcc.py).
 Each launch adds one to the tracer's counter ``k4_launch`` under (cells,
-nl, dtype, flux, entry); ``LAUNCHES`` reads it.
+nl, dtype, flux, entry).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import TYPE_CHECKING, Dict, Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
 from ..forms.soa import FLUX_SUPS, FLUX_SUPS_T, FLUX_UGN, UGN_U_EPS
 from ..utils import nvcc
-from ..utils.profiling import count, counts
+from ..utils.profiling import count, dtype_name
 
 if TYPE_CHECKING:
     from .structured import StructuredAsm
 
 COUNTER = "k4_launch"
-_reset_at: Dict = {}      # the counter at the last ``reset_launches``
 _DTYPE = {torch.float64: 0, torch.float32: 1}
 _ENTRY = {"jacobian": 0, "residual": 1}
 FLUX_NAMES = {FLUX_SUPS_T: "sups_t", FLUX_SUPS: "sups", FLUX_UGN: "ugn"}
 QDEG = 2                  # the quadrature rule baked into the source
-NQ = 4
 _LIB: Optional[ctypes.CDLL] = None
-
-# Operations a cell costs K4 (a fused multiply-add counts 2), counted from
-# csrc/soa_element.cu: the cell's set-up (geometry, basis gradients, the
-# metric or the diameter, Gu and gp), then per quadrature point the values
-# (32), the flux (primal, or in dual numbers along one tangent) and the
-# E^T contraction into 16 accumulators (144), and the 16 scalings (32).
-# The Jacobian's 16 threads a cell each do all of it.
-_SETUP_FLOPS = {FLUX_SUPS_T: 275, FLUX_SUPS: 275, FLUX_UGN: 279}
-_FLUX_FLOPS = {FLUX_SUPS_T: (112, 322), FLUX_SUPS: (97, 274),
-               FLUX_UGN: (88, 241)}   # (primal, dual)
-# H100 SXM vector rates without the tensor cores (NVIDIA's data sheet)
-FLOPS_PER_S = {torch.float64: 34e12, torch.float32: 67e12}
-HBM_BYTES_PER_S = 3.35e12
 
 
 def build() -> ctypes.CDLL:
@@ -153,8 +138,8 @@ def _launch(entry: str, kernel, sasm: StructuredAsm, Lp: int,
     if err != 0:
         raise RuntimeError(f"soa_element: K4 {entry} launch failed "
                            f"(cudaError {err})")
-    count(COUNTER, key=(M3p * nl, nl, str(w.dtype).replace("torch.", ""),
-                        FLUX_NAMES[flux], entry))
+    count(COUNTER, key=(M3p * nl, nl, dtype_name(w.dtype), FLUX_NAMES[flux],
+                        entry))
     return out
 
 
@@ -171,45 +156,3 @@ def residual(kernel, sasm: StructuredAsm, Lp: int,
     """(M3p*16 + 1, nl) layer-minor element residuals with the appended
     zero row (``residual_structured``'s buffer), one launch."""
     return _launch("residual", kernel, sasm, Lp, w)
-
-
-def flops_per_cell(flux: int, entry: str) -> int:
-    """Operations K4 spends on one live cell (``_FLUX_FLOPS``)."""
-    primal, dual = _FLUX_FLOPS[flux]
-    per_thread = _SETUP_FLOPS[flux] + NQ * (
-        32 + (dual if entry == "jacobian" else primal) + 144) + 32
-    return per_thread * (16 if entry == "jacobian" else 1)
-
-
-def bound_ms(entry: str, flux: int, sasm: StructuredAsm, Lp: int,
-             w: torch.Tensor, live_cells: int) -> dict:
-    """The least time the card could take for one launch: the bytes
-    (the output written once, coordinates, alive, the gather tables and w
-    read once) over 3.35 TB/s, and the operations of the live cells over
-    the card's vector rate in w's dtype (34 TFLOP/s f64, 67 f32)."""
-    M3p = sasm.wdof.shape[0]
-    nl = Lp - 1
-    item = w.element_size()
-    out_rows = M3p * 256 if entry == "jacobian" else M3p * 16 + 1
-    nbytes = (out_rows * nl * item + 12 * M3p * nl * item + 4 * M3p * nl
-              + 2 * 16 * 8 * M3p + w.numel() * item)
-    flops = flops_per_cell(flux, entry) * live_cells
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = flops / FLOPS_PER_S[w.dtype] * 1e3
-    return dict(bytes=nbytes, flops=flops, bytes_ms=b_ms, flops_ms=f_ms,
-                ms=max(b_ms, f_ms),
-                bound_by="bytes" if b_ms >= f_ms else "operations")
-
-
-def __getattr__(name: str):
-    """``LAUNCHES``: K4 launches since import or the last
-    ``reset_launches``."""
-    if name == "LAUNCHES":
-        return sum(counts(COUNTER, _reset_at).values())
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def reset_launches() -> None:
-    """Count the launches from now."""
-    _reset_at.clear()
-    _reset_at.update(counts(COUNTER))

@@ -44,8 +44,7 @@ is cast to the iterate's type and the result back to r's.
 The kernel is built at first use with ``nvcc`` into
 ``build/torch_kernels/`` (utils/nvcc.py).  Each launch adds one to the
 tracer's counter ``k2_launch`` under its shape (E, Lp, n2d, values
-dtype, iterate dtype, inner_sweeps, symmetric; utils/profiling.py);
-``LAUNCHES`` and ``LAUNCHES_BY_DTYPES`` read it.
+dtype, iterate dtype, inner_sweeps, symmetric; utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -53,17 +52,15 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..assemble.layered_spmv import dtype_name, launch_attr
 from ..utils import nvcc
-from ..utils.profiling import count, counts, read
+from ..utils.profiling import count, dtype_name, read
 
 COUNTER = "k2_launch"
-_reset_at: Dict = {}      # the counter at the last ``reset_launches``
 
 CLUSTER_SIZES = (1, 2, 4, 8, 16)   # 16 needs the non-portable size
 SMEM_LIMIT = 232_448               # dynamic shared memory a block may take
@@ -417,15 +414,3 @@ def plane_gs_plain(op: PlaneGSOperand, r: torch.Tensor) -> torch.Tensor:
             x = relax(l, rhs_of(2, l, x), X[l])
             X[l] = x
     return torch.stack(X).reshape(-1).to(r.dtype)
-
-
-def __getattr__(name: str):
-    """``LAUNCHES`` and ``LAUNCHES_BY_DTYPES`` (by (values dtype, iterate
-    dtype)): K2 launches since import or the last ``reset_launches``."""
-    return launch_attr(COUNTER, _reset_at, name)
-
-
-def reset_launches() -> None:
-    """Count the launches from now."""
-    _reset_at.clear()
-    _reset_at.update(counts(COUNTER))

@@ -44,21 +44,21 @@ is its twin, and runs for CPU tensors and for the general
 bisection count, the step controller's constants and the locator's
 tolerance from this module and fem/interpolate.py.  Each launch adds one
 to the tracer's counter ``k3_launch`` under its shape (lanes, Lp, K2,
-dtype, direction); ``LAUNCHES`` reads it.
+dtype, direction).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..fem.interpolate import LOCATE_TOL, LayeredDeviceLocator, locate_any
 from ..utils import nvcc
-from ..utils.profiling import count, counts, read, span
+from ..utils.profiling import count, dtype_name, read, span
 
 # Dormand-Prince RK45 tableau
 _A = np.zeros((7, 7))
@@ -470,7 +470,6 @@ def trace_particles_plain(
 # ---- K3: the hand-written kernel -------------------------------------------
 
 COUNTER = "k3_launch"
-_reset_at: Dict = {}      # the counter at the last ``reset_launches``
 _DTYPE = {torch.float64: 0, torch.float32: 1}
 SMEM_LIMIT = 49152        # the planes' shared memory (no opt-in above it)
 _LIB: Optional[ctypes.CDLL] = None
@@ -596,7 +595,7 @@ def trace_k3(cfg: TraceConfigDevice, dloc: LayeredDeviceLocator,
         raise RuntimeError(f"streamtrace: K3 launch failed (cudaError "
                            f"{err})")
     count(COUNTER, key=(n, dloc.x_planes.shape[0], dloc.tab2.shape[1],
-                        str(seeds.dtype).replace("torch.", ""),
+                        dtype_name(seeds.dtype),
                         "reverse" if cfg.sign < 0 else "forward"))
     return x, steps, done
 
@@ -618,17 +617,3 @@ def chase(next_idx: torch.Tensor, n_loads: int) -> torch.Tensor:
         raise RuntimeError(f"streamtrace: chase launch failed (cudaError "
                            f"{err})")
     return out
-
-
-def __getattr__(name: str):
-    """``LAUNCHES``: K3 launches since import or the last
-    ``reset_launches``."""
-    if name == "LAUNCHES":
-        return sum(counts(COUNTER, _reset_at).values())
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def reset_launches() -> None:
-    """Count the launches from now."""
-    _reset_at.clear()
-    _reset_at.update(counts(COUNTER))

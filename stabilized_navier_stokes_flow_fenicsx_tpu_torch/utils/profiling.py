@@ -165,6 +165,11 @@ def count(name: str, n: int = 1, key: Hashable = None) -> None:
         _counts[k] = _counts.get(k, 0) + n
 
 
+def dtype_name(dtype) -> str:
+    """``torch.float64`` -> ``"float64"`` (a launch key's dtype)."""
+    return str(dtype).replace("torch.", "")
+
+
 def read(t, convert: Callable = float):
     """``convert(t)``, a blocking device->host read of the tensor ``t``
     (``float``, ``int``, ``bool``, ``torch.Tensor.tolist``,

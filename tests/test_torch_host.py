@@ -107,12 +107,13 @@ _JAX_IMPORT = re.compile(
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
      ROOT / "__graft_entry_torch__.py",
      ROOT / "tests" / "torch_dist_cases.py",
+     ROOT / "tests" / "torch_kernel_bounds.py",
      *ROOT.glob("profile_torch_*.py"),
      *(ROOT / "examples").glob("torch_*.py")]))
 def test_no_jax_import(path):
     """The port, the card's smoke run, the port's root entry points,
-    the profiling scripts, the port's examples and the code the spawned
-    rank processes import never import jax or the JAX package: the
-    card's machine has no jax."""
+    the profiling scripts, the kernels' yardsticks, the port's examples
+    and the code the spawned rank processes import never import jax or
+    the JAX package: the card's machine has no jax."""
     src = (ROOT / path).read_text()
     assert not _JAX_IMPORT.search(src), path

@@ -42,13 +42,11 @@ from stabilized_navier_stokes_flow_fenicsx_tpu_torch.flow.inlet import (
     solve_inlet_profiles)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.forms.navier_stokes import (
     make_ns_sups_kernel)
-from stabilized_navier_stokes_flow_fenicsx_tpu_torch.assemble.layered_spmv import (
-    dtype_name)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import plane_gs
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve.mg import (
     galerkin_levels)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
-    counts)
+    counts, dtype_name)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.testimg import (
     make_annulus_image)
 
@@ -102,12 +100,12 @@ def test_kernel_matches_plain_on_card(levels, vdtype, adtype, tol,
         assert K.adtype == adtype
         r = torch.as_tensor(rng.standard_normal(op.mask.numel()),
                             device=op.values.device)
-        before = plane_gs.LAUNCHES
+        before = counts("k2_launch")
         x = K(r)
         torch.cuda.synchronize()
-        assert plane_gs.LAUNCHES == before + 1
+        assert sum(counts("k2_launch", before).values()) == 1
         x_plain = plane_gs.plane_gs_plain(K, r)
-        assert plane_gs.LAUNCHES == before + 1
+        assert sum(counts("k2_launch", before).values()) == 1
         assert x.dtype == r.dtype and torch.isfinite(x).all()
         assert _rel_l2(x, x_plain) <= tol, f"level {k}"
 
@@ -115,29 +113,32 @@ def test_kernel_matches_plain_on_card(levels, vdtype, adtype, tol,
 @pytest.mark.cuda
 def test_launches_counted_by_type_pair(levels):
     op = levels[0]
-    plane_gs.reset_launches()
+    before = counts("k2_launch")
     r = torch.ones(op.mask.numel(), dtype=torch.float64,
                    device=op.values.device)
     for vdtype, adtype, _ in PAIR_TOLS:
         plane_gs.PlaneGSOperand(op.values, op.cols, op.row_ptr, op.diag_pos,
                                 op.mask, op.n2d, dtype=vdtype)(r)
     torch.cuda.synchronize()
-    assert plane_gs.LAUNCHES == 2
-    assert plane_gs.LAUNCHES_BY_DTYPES == {
-        (v, a): 1 for v, a, _ in PAIR_TOLS}
+    launches = counts("k2_launch", before)
+    assert sum(launches.values()) == 2
+    by_pair = {}            # by a key's (values dtype, iterate dtype)
+    for key, n in launches.items():
+        by_pair[key[3:5]] = by_pair.get(key[3:5], 0) + n
+    assert by_pair == {
+        (dtype_name(v), dtype_name(a)): 1 for v, a, _ in PAIR_TOLS}
 
 
 def _check(K, r, tol, what):
     """One launch of K against the plain version on r."""
-    before = plane_gs.LAUNCHES
-    shapes = counts("k2_launch")
+    before = counts("k2_launch")
     x = K(r)
     torch.cuda.synchronize()
-    assert plane_gs.LAUNCHES == before + 1
+    assert sum(counts("k2_launch", before).values()) == 1
     # the tracer's shape counter: one launch of this shape
     shape = (K.E, K.Lp, K.n2d, dtype_name(K.vdtype), dtype_name(K.adtype),
              K.inner_sweeps, K.symmetric)
-    assert counts("k2_launch", shapes) == {shape: 1}, what
+    assert counts("k2_launch", before) == {shape: 1}, what
     x_plain = plane_gs.plane_gs_plain(K, r)
     assert x.dtype == r.dtype and torch.isfinite(x).all(), what
     assert _rel_l2(x, x_plain) <= tol, what

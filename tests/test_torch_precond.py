@@ -31,6 +31,8 @@ from stabilized_navier_stokes_flow_fenicsx_tpu.solve import (  # noqa: E402
     driver as jax_driver, precond as jax_precond)
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.solve import (  # noqa: E402
     driver, plane_gs, precond)
+from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (  # noqa: E402
+    counts)
 
 from parity_fixtures import CHANNEL, FIXTURE_DIR  # noqa: E402
 from torch_cases import (channel_image, jax_channel, port_state,  # noqa: E402
@@ -132,7 +134,7 @@ def test_plane_gs_operand_checks_its_inputs(case):
 def test_plane_gs_on_the_cpu_launches_nothing(case):
     """A CPU tensor runs the plain version: no kernel, no count."""
     lp, mask, vals, r, arrays, mask_t = case
-    plane_gs.reset_launches()
+    before = counts("k2_launch")
     for dt in (None, torch.bfloat16):
         op = plane_gs.PlaneGSOperand(
             torch.as_tensor(vals), arrays.cols, arrays.row_ptr,
@@ -141,7 +143,7 @@ def test_plane_gs_on_the_cpu_launches_nothing(case):
         x = op(torch.as_tensor(r))
         assert x.dtype == torch.float64
         assert torch.equal(x, plane_gs.plane_gs_plain(op, torch.as_tensor(r)))
-    assert plane_gs.LAUNCHES == 0 and not plane_gs.LAUNCHES_BY_DTYPES
+    assert counts("k2_launch", before) == {}
 
 
 def test_newton_plane_gs_matches_jax(case):

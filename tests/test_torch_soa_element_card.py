@@ -22,7 +22,7 @@ the same plan and state:
   without it (the pillar's) and UGN;
 * a random nonzero state, so that every slot of the flux's state is live;
 * dead cells and padding columns exactly zero;
-* one ``k4_launch`` (and one ``LAUNCHES``) per call, under its key;
+* one ``k4_launch`` per call, under its key;
 * the structured route on a CUDA tensor launches K4 (never the twin) and
   agrees with the route on CPU tensors;
 * the wrapper's refusals: a CPU tensor, a wrong dtype, a non-contiguous
@@ -121,17 +121,16 @@ def test_k4_matches_the_twin(problem, dname, flux, entry):
     sasm, Lp = lp.arrays.sasm, lp.n_planes
     w = torch.as_tensor(problem["w"], dtype=dtype, device=problem["dev"])
     kern = _kernel(flux, problem["nu"])
-    before = soa_element.LAUNCHES
-    shapes = counts("k4_launch")
+    before = counts("k4_launch")
     buf = getattr(soa_element, entry)(kern, sasm, Lp, w)
     torch.cuda.synchronize()
     M3p = sasm.wdof.shape[0]
-    assert soa_element.LAUNCHES == before + 1
-    assert counts("k4_launch", shapes) == {
+    assert sum(counts("k4_launch", before).values()) == 1
+    assert counts("k4_launch", before) == {
         (M3p * (Lp - 1), Lp - 1, dname, flux, entry): 1}
     twin = (structured._jac_buffer_plain if entry == "jacobian"
             else structured._res_buffer_plain)(kern, Lp, sasm, w)
-    assert soa_element.LAUNCHES == before + 1
+    assert sum(counts("k4_launch", before).values()) == 1
     assert buf.shape == twin.shape and buf.dtype == dtype
     assert torch.isfinite(buf).all()
     scale = float(twin.abs().max())
@@ -173,11 +172,11 @@ def test_the_route_on_the_card_launches_k4(problem, monkeypatch):
     monkeypatch.setattr(structured, "_jac_buffer_plain", twin)
     monkeypatch.setattr(structured, "_res_buffer_plain", twin)
     w = w_cpu.to(problem["dev"])
-    before = soa_element.LAUNCHES
+    before = counts("k4_launch")
     V = matrix_values_layered(kern, lp.E, lp.n_planes, lp.bs, lp.arrays, w)
     R = residual_layered(kern, lp.n2d, lp.n_planes, lp.bs, lp.arrays, w)
     torch.cuda.synchronize()
-    assert soa_element.LAUNCHES == before + 2
+    assert sum(counts("k4_launch", before).values()) == 2
     for got, ref in ((V, V_cpu), (R, R_cpu)):
         scale = float(ref.abs().max())
         assert float((got.cpu() - ref).abs().max()) <= 1e-12 * scale
@@ -209,6 +208,6 @@ def test_k4_refuses(problem, fault, match):
     else:
         kern = make_ns_sups_kernel(
             "tetrahedron", torch.tensor(problem["nu"], device=problem["dev"]))
-    before = soa_element.LAUNCHES
+    before = counts("k4_launch")
     _refuses(problem, w, match, kern)
-    assert soa_element.LAUNCHES == before
+    assert counts("k4_launch", before) == {}

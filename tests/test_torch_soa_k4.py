@@ -49,6 +49,8 @@ from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils import nvcc
 from stabilized_navier_stokes_flow_fenicsx_tpu_torch.utils.profiling import (
     counts)
 
+import torch_kernel_bounds as kernel_bounds
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "stabilized_navier_stokes_flow_fenicsx_tpu_torch",
                       "csrc", "soa_element.cu")
@@ -151,7 +153,7 @@ def _constant(name: str) -> np.ndarray:
 
 def test_the_source_tables_are_the_p1_rule():
     phi, dphi, wq = soa._p1_tables("tetrahedron", soa_element.QDEG)
-    assert phi.shape == (soa_element.NQ, 4)
+    assert phi.shape == (kernel_bounds.K4_NQ, 4)
     np.testing.assert_array_equal(_constant("K4_PHI"), phi.ravel())
     np.testing.assert_array_equal(_constant("K4_DPHI"), dphi.ravel())
     np.testing.assert_array_equal(_constant("K4_WQ"), wq)
@@ -214,14 +216,14 @@ def test_the_bound_counts_every_entry_once(box):
     lp, w = box
     sasm = lp.arrays.sasm
     M3p, nl = sasm.wdof.shape[0], lp.n_planes - 1
-    b = soa_element.bound_ms("jacobian", soa.FLUX_SUPS_T, sasm,
-                             lp.n_planes, w, live_cells=M3p * nl)
+    b = kernel_bounds.k4_bound("jacobian", "sups_t", sasm, lp.n_planes, w,
+                               live_cells=M3p * nl)
     assert b["bytes"] > M3p * nl * 256 * 8
-    assert b["flops"] == soa_element.flops_per_cell(
-        soa.FLUX_SUPS_T, "jacobian") * M3p * nl
+    assert b["flops"] == kernel_bounds.k4_flops_per_cell(
+        "sups_t", "jacobian") * M3p * nl
     assert b["ms"] == max(b["bytes_ms"], b["flops_ms"])
-    r = soa_element.bound_ms("residual", soa.FLUX_SUPS_T, sasm,
-                             lp.n_planes, w, live_cells=M3p * nl)
+    r = kernel_bounds.k4_bound("residual", "sups_t", sasm, lp.n_planes, w,
+                               live_cells=M3p * nl)
     assert 16 * r["flops"] < 2 * b["flops"]
     assert r["bytes"] < b["bytes"] / 8
 
